@@ -1,0 +1,26 @@
+"""vpic_tpu_torch: the PyTorch + CUDA port of vpic_tpu, for one NVIDIA GPU.
+
+Plain tensor code is PyTorch; the particle push of the main path is a CUDA
+kernel written by hand for Hopper (csrc/fused_push2d.cu), with a plain
+PyTorch twin that CPU tensors use.  vpic_tpu stays the reference: every
+module here keeps its counterpart's name and is tested against it.
+
+Layer map:
+  deck.Simulation     -- input-deck vocabulary + step orchestration
+  ops.fused_push      -- bucket sort + the CUDA push kernel (main path)
+  ops.push            -- particle engine, plain path (advance_p/sort/energy/rho)
+  ops.fields          -- Yee FDTD solver, div cleaners, BCs, synchronization
+  ops.interp          -- interpolator / accumulator field<->particle interface
+  interop             -- states carried across from/to vpic_tpu as numpy
+"""
+
+from .grid import (ABSORB_FIELDS, ABSORB_PARTICLES, ANTI_SYMMETRIC, BOUNDARY,
+                   METAL, PEC, PERIODIC, PMC, REFLECT_PARTICLES, SYMMETRIC,
+                   Grid, partition_absorbing_box, partition_metal_box,
+                   partition_periodic_box)
+from .state import (FieldState, MaterialCoeffs, SimState, SpeciesParams,
+                    SpeciesState)
+from .deck import Material, Simulation, everywhere
+from .utils.log import error, message, sim_log, warning
+
+__version__ = "0.1.0"

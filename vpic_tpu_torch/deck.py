@@ -1,0 +1,471 @@
+"""The deck layer: VPIC's input-deck vocabulary as a Python builder
+(counterpart of ``vpic_tpu/deck.py``, for what the 2-D main path uses).
+
+A deck is ordinary Python driving a ``Simulation`` builder with the
+reference's vocabulary (define_units, define_timestep,
+define_periodic_grid, set_domain_field_bc, define_material,
+define_field_array, define_species, set_region_field, inject_particle, ...).
+``initialize()`` turns it into a ``SimState`` of tensors on
+``Simulation.device``, and ``make_advance()`` returns the step
+(src/vpic/advance.cc:15-208).
+
+Host-side staging (particle injection, region rasterization) runs in numpy
+at double precision exactly like the JAX package, so the same deck and seed
+give bit-equal initial particle and field arrays in both packages.  The step
+itself never reads the device: the sort and cleaner cadences are decisions
+on the host-int ``state.step``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field as dfield
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .grid import Grid, partition_periodic_box
+from .ops import fields as F
+from .ops import fused_push as FP
+from .ops import interp as I
+from .ops import push as P
+from .state import (FieldState, MaterialCoeffs, SimState, SpeciesParams,
+                    SpeciesState)
+
+everywhere = lambda x, y, z: True
+
+
+@dataclass
+class Material:
+    name: str
+    epsx: float = 1.0
+    epsy: float = 1.0
+    epsz: float = 1.0
+    mux: float = 1.0
+    muy: float = 1.0
+    muz: float = 1.0
+    sigmax: float = 0.0
+    sigmay: float = 0.0
+    sigmaz: float = 0.0
+    zetax: float = 0.0
+    zetay: float = 0.0
+    zetaz: float = 0.0
+    id: int = 0
+
+
+@dataclass
+class _StagedSpecies:
+    params: SpeciesParams
+    xs: list = dfield(default_factory=list)      # staged injections (host)
+
+
+class Simulation:
+    """vpic_simulation analogue (src/vpic/vpic.h:120-671).
+
+    ``device`` is where initialize() puts the state; set it before
+    initialize() (decks build the Simulation themselves)."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        self.device = torch.device(device)
+        self.grid: Optional[Grid] = None
+        self.materials: List[Material] = []
+        self.species: List[_StagedSpecies] = []
+        self.damp = 0.0
+        self._cvac = 1.0
+        self._eps0 = 1.0
+        self._dt = 0.0
+        # High-level step-loop parameters (vpic.h:133-173)
+        self.num_step = 0
+        self.status_interval = 0
+        self.sync_shared_interval = 0
+        self.clean_div_e_interval = 0
+        self.clean_div_b_interval = 0
+        self.num_div_e_round = 2
+        self.num_div_b_round = 2
+        self.max_streak = 4
+        # bucket-sort cadence of the fused path (vpic_tpu's
+        # pallas_sort_interval; the per-species sort_interval drives only
+        # the JAX package's general path)
+        self.pallas_sort_interval = 8
+        self._field_ops: list = []
+        self._entropy = np.random.RandomState(seed)
+        self._rank = 0
+
+    # ---------------- units / grid ----------------
+
+    def seed_entropy(self, seed: int):
+        self._entropy = np.random.RandomState(seed + self._rank)
+
+    def rng(self, _i: int = 0) -> np.random.RandomState:
+        """Deck-level host RNG pool handle (rng(i) in decks)."""
+        return self._entropy
+
+    def define_units(self, cvac: float, eps0: float):
+        self._cvac = float(cvac)
+        self._eps0 = float(eps0)
+
+    def define_timestep(self, dt: float):
+        self._dt = float(dt)
+
+    def courant_length(self, lx, ly, lz, nx, ny, nz):
+        s = 0.0
+        if nx > 1:
+            s += (nx / lx) ** 2
+        if ny > 1:
+            s += (ny / ly) ** 2
+        if nz > 1:
+            s += (nz / lz) ** 2
+        return s ** -0.5
+
+    def define_periodic_grid(self, lo, hi, n, topology=(1, 1, 1)):
+        self.grid = partition_periodic_box(
+            *lo, *hi, *[int(v) for v in n], *[int(v) for v in topology],
+            dt=self._dt, cvac=self._cvac, eps0=self._eps0)
+        return self.grid
+
+    def set_domain_field_bc(self, face: int, bc: int):
+        self.grid = self.grid.with_bc(face, fbc=bc)
+
+    def set_domain_particle_bc(self, face: int, bc):
+        """bc: a built-in particle-BC code.  Custom handlers come with the
+        boundary layer."""
+        if callable(bc):
+            raise NotImplementedError(
+                "custom particle-BC handlers are not ported yet")
+        self.grid = self.grid.with_bc(face, pbc=bc)
+
+    # ---------------- materials / field array ----------------
+
+    def define_material(self, name, eps=1.0, mu=1.0, sigma=0.0, zeta=0.0,
+                        **tensor) -> Material:
+        def three(v):
+            return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+
+        ex, ey, ez = three(tensor.get("eps", eps))
+        mx, my, mz = three(tensor.get("mu", mu))
+        sx, sy, sz = three(tensor.get("sigma", sigma))
+        zx, zy, zz = three(tensor.get("zeta", zeta))
+        m = Material(name, ex, ey, ez, mx, my, mz, sx, sy, sz, zx, zy, zz,
+                     id=len(self.materials))
+        self.materials.append(m)
+        return m
+
+    def define_field_array(self, _kernels=None, damp: float = 0.0):
+        self.damp = float(damp)
+        self._field_ops = []
+
+    def _axis_coeffs(self, sigma, eps):
+        """Exponential differencing coefficients (sfa.c:115-133)."""
+        g = self.grid
+        ax = (sigma * g.dt) / (eps * g.eps0)
+        decay = math.exp(-ax)
+        if ax == 0:
+            drive = 1.0 / eps
+        elif decay == 0:
+            drive = 0.0
+        else:
+            drive = 2.0 * math.exp(-0.5 * ax) * math.sinh(0.5 * ax) / (ax * eps)
+        return decay, drive
+
+    def _material_coeffs(self) -> MaterialCoeffs:
+        """create_sfa_params (sfa.c:55-151) for one material filling all
+        space: 0-d coefficients (the vacuum fast-kernel analogue,
+        sfa.c:202-211).  Region-assigned materials are not ported yet."""
+        if not self.materials:
+            raise RuntimeError("no materials defined")
+        m = self.materials[0]
+        dx_, vx = self._axis_coeffs(m.sigmax, m.epsx)
+        dy_, vy = self._axis_coeffs(m.sigmay, m.epsy)
+        dz_, vz = self._axis_coeffs(m.sigmaz, m.epsz)
+        noncond = 1.0 if (m.sigmax == 0 and m.sigmay == 0
+                          and m.sigmaz == 0) else 0.0
+        fl = lambda v: torch.tensor(v, dtype=torch.float32,
+                                    device=self.device)
+        return MaterialCoeffs(
+            decayx=fl(dx_), decayy=fl(dy_), decayz=fl(dz_),
+            drivex=fl(vx), drivey=fl(vy), drivez=fl(vz),
+            rmux=fl(1.0 / m.mux), rmuy=fl(1.0 / m.muy),
+            rmuz=fl(1.0 / m.muz), nonconductive=fl(noncond),
+            epsx=fl(m.epsx), epsy=fl(m.epsy), epsz=fl(m.epsz))
+
+    # ---------------- species / particles ----------------
+
+    def define_species(self, name, q, m, max_local_np, max_local_nm=-1,
+                       sort_interval=0, sort_out_of_place=1) -> SpeciesParams:
+        p = SpeciesParams(name=name, q=float(q), m=float(m),
+                          capacity=int(math.ceil(max_local_np)),
+                          sort_interval=int(sort_interval),
+                          id=len(self.species))
+        self.species.append(_StagedSpecies(params=p))
+        return p
+
+    def inject_particle(self, sp: SpeciesParams, x, y, z, ux, uy, uz, w,
+                        age=0.0, update_rhob=0):
+        """Robust global -> (voxel, offset) conversion in double precision
+        (misc.cc:16-100), staged on the host."""
+        g = self.grid
+        if w < 0:
+            raise ValueError("inject_particle: w < 0")
+        if age != 0.0:
+            raise NotImplementedError(
+                "aged injection is not ported yet")
+        x0, y0, z0, x1, y1, z1 = g.x0, g.y0, g.z0, g.x1, g.y1, g.z1
+        if not (x0 <= x <= x1 and y0 <= y <= y1 and z0 <= z <= z1):
+            return
+        nx, ny, nz = g.gnx, g.gny, g.gnz
+
+        def conv(v, v0, v1, n):
+            v = float(n) * ((v - v0) / (v1 - v0))
+            iv = int(v)
+            v -= iv
+            v = (v + v) - 1.0
+            if iv == n:
+                v = 1.0
+                iv = n - 1
+            return v, iv + 1
+
+        dx, ix = conv(x, x0, x1, nx)
+        dy, iy = conv(y, y0, y1, ny)
+        dz, iz = conv(z, z0, z1, nz)
+        self.species[sp.id].xs.append(
+            (dx, dy, dz, ix, iy, iz, ux, uy, uz, w, update_rhob))
+
+    # ---------------- field loading ----------------
+
+    def set_region_field(self, region, ex=0, ey=0, ez=0, bx=0, by=0, bz=0):
+        """set_point_region_field (deck/wrapper.h:190-210): evaluate each
+        component's expression at its Yee stagger position (over ghosts too)
+        wherever ``region(x,y,z)`` holds.  B is stored internally as cB.
+        Recorded here, materialized at initialize()."""
+        self._field_ops.append((region, dict(ex=ex, ey=ey, ez=ez,
+                                             bx=bx, by=by, bz=bz)))
+
+    def _materialize_fields(self) -> dict:
+        """Evaluate the recorded region-field ops on the ghosted mesh;
+        returns 6 float32 numpy arrays (ex, ey, ez, cbx, cby, cbz)."""
+        g = self.grid
+        c = g.cvac
+        xn = g.x0 + g.dx * (np.arange(g.NX) - 1.0)
+        yn = g.y0 + g.dy * (np.arange(g.NY) - 1.0)
+        zn = g.z0 + g.dz * (np.arange(g.NZ) - 1.0)
+        xc, yc, zc = xn + 0.5 * g.dx, yn + 0.5 * g.dy, zn + 0.5 * g.dz
+
+        out = {k: np.zeros(g.shape, np.float32)
+               for k in ("ex", "ey", "ez", "cbx", "cby", "cbz")}
+        # Yee stagger sample positions (wrapper.h:196-207).
+        stagger = dict(ex=(xc, yn, zn), ey=(xn, yc, zn), ez=(xn, yn, zc),
+                       cbx=(xn, yc, zc), cby=(xc, yn, zc), cbz=(xc, yc, zn))
+        scales = dict(ex=1.0, ey=1.0, ez=1.0, cbx=c, cby=c, cbz=c)
+        keymap = dict(ex="ex", ey="ey", ez="ez", bx="cbx", by="cby", bz="cbz")
+
+        for region, exprs in self._field_ops:
+            for ekey, expr in exprs.items():
+                name = keymap[ekey]
+                xs, ys, zs = stagger[name]
+                Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+                if callable(expr):
+                    vals = np.vectorize(expr, otypes=[np.float64])(X, Y, Z)
+                else:
+                    vals = np.full(X.shape, float(expr))
+                if callable(region):
+                    mask = np.vectorize(region, otypes=[bool])(X, Y, Z)
+                else:
+                    mask = np.full(X.shape, bool(region))
+                out[name] = np.where(mask, scales[name] * vals,
+                                     out[name]).astype(np.float32)
+        return out
+
+    # ---------------- initialize (initialize.cc:5-64) ----------------
+
+    def _pack_species(self):
+        """Host-pack the staged particles into fixed-capacity arrays, in
+        injection order.  Returns (species_states, update_rhob_masks) on
+        ``self.device``."""
+        g = self.grid
+        out, urbs = [], []
+        for st in self.species:
+            cap = st.params.capacity
+            a = (np.asarray([r[:10] for r in st.xs], np.float64)
+                 if st.xs else np.zeros((0, 10)))
+            urb = (np.asarray([r[10] for r in st.xs], bool)
+                   if st.xs else np.zeros((0,), bool))
+            n = len(a)
+            if n > cap:
+                raise RuntimeError(
+                    f"species {st.params.name}: {n} particles overflow "
+                    f"capacity {cap}")
+            vox = (a[:, 3].astype(np.int64)
+                   + g.NX * (a[:, 4].astype(np.int64)
+                             + g.NY * a[:, 5].astype(np.int64))
+                   ).astype(np.int32)
+            cols = {}
+            for name, col in (("dx", 0), ("dy", 1), ("dz", 2), ("ux", 6),
+                              ("uy", 7), ("uz", 8), ("w", 9)):
+                buf = np.zeros(cap, np.float32)
+                buf[:n] = a[:, col]
+                cols[name] = buf
+            ibuf = np.zeros(cap, np.int32)
+            ibuf[:n] = vox
+            lbuf = np.zeros(cap, bool)
+            lbuf[:n] = True
+            ubuf = np.zeros(cap, bool)
+            ubuf[:n] = urb
+            t = lambda arr: torch.from_numpy(arr).to(self.device)
+            out.append(SpeciesState(
+                **{k: t(v) for k, v in cols.items()}, i=t(ibuf),
+                live=t(lbuf),
+                np=torch.tensor(n, dtype=torch.int32, device=self.device)))
+            urbs.append(t(ubuf))
+        return tuple(out), tuple(urbs)
+
+    def _build_initial_fields(self) -> FieldState:
+        """Materialize the recorded region-field ops into a FieldState."""
+        f = FieldState.zeros(self.grid, self.device)
+        for k, v in self._materialize_fields().items():
+            getattr(f, k).copy_(torch.from_numpy(v))
+        return f
+
+    def initialize(self) -> SimState:
+        """Post-deck derived-state fixups (initialize.cc:5-64), in the JAX
+        package's order: rhob, B cleaning, curl B, rho, rhob from div E,
+        E cleaning, then u back half a step."""
+        g = self.grid
+        if g.sharded:
+            raise NotImplementedError("decomposed grids are not ported yet")
+        m = self._material_coeffs()
+        f = self._build_initial_fields()
+        species, urbs = self._pack_species()
+
+        rhob = f.rhob.reshape(-1)
+        for st, sp, urb in zip(self.species, species, urbs):
+            P.deposit_rhob(rhob, g, sp.i, sp.dx, sp.dy, sp.dz, sp.w,
+                           -st.params.q, urb & sp.live)
+        F.synchronize_tang_e_norm_b(f, g)
+        F.compute_div_b_err(f, g)
+        F.clean_div_b(f, g)
+        F.compute_curl_b(f, g, m)
+        F.clear_rhof(f)
+        rhof = f.rhof.reshape(-1)
+        for st, sp in zip(self.species, species):
+            P.accumulate_rho_p(rhof, sp, g, st.params.q)
+        F.synchronize_rho(f, g)
+        F.compute_rhob(f, g, m)
+        F.compute_div_e_err(f, g, m)
+        F.clean_div_e(f, g, m)
+        F.synchronize_tang_e_norm_b(f, g)
+        fcoef = I.load_interpolator(f, g)
+        species = tuple(
+            P.uncenter_p(sp, fcoef, g, st.params.q, st.params.m)
+            for st, sp in zip(self.species, species))
+        # lanes left walking after max_streak rounds, summed over steps
+        diag = {"unfinished": torch.zeros((), dtype=torch.int32,
+                                          device=self.device)}
+        return SimState(fields=f, species=species, step=0, diag=diag)
+
+    # ---------------- the step (advance.cc:15-208) ----------------
+
+    def make_advance(self) -> Callable[[SimState], SimState]:
+        """The step of the fused 2-D path: bucket sort on its cadence, the
+        push of every species (fused_push_multi), accumulator unload,
+        advance_b / advance_e / advance_b, then the cleaners on their
+        cadence.  The step updates the state's field tensors in place and
+        returns the new SimState."""
+        g = self.grid
+        FP.supports(g)
+        m = self._material_coeffs()
+        damp = self.damp
+        sp_params = [st.params for st in self.species]
+        qms = [(spp.q, spp.m) for spp in sp_params]
+        sortK = max(1, self.pallas_sort_interval)
+        # Nothing in this path grows the live set or moves a live lane past
+        # the injection count (no migration, emission, injection or
+        # collisions; the sort packs live lanes first), so sorts cover the
+        # injected extent only.
+        sort_extents = [max(len(st.xs), 1) for st in self.species]
+        max_streak = self.max_streak
+        ce = self.clean_div_e_interval
+        cb = self.clean_div_b_interval
+        sy = self.sync_shared_interval
+
+        def clean_e(f, species):
+            F.clear_rhof(f)
+            rhof = f.rhof.reshape(-1)
+            for sp, spp in zip(species, sp_params):
+                P.accumulate_rho_p(rhof, sp, g, spp.q)
+            F.synchronize_rho(f, g)
+            for _ in range(self.num_div_e_round):
+                F.compute_div_e_err(f, g, m)
+                F.clean_div_e(f, g, m)
+
+        def clean_b(f):
+            for _ in range(self.num_div_b_round):
+                F.compute_div_b_err(f, g)
+                F.clean_div_b(f, g)
+
+        def advance(state: SimState) -> SimState:
+            f = state.fields
+            species = list(state.species)
+            step = state.step
+            if species and step % sortK == 0:
+                species = [FP.bucket_sort_p(sp, g, extent=sort_extents[k])
+                           for k, sp in enumerate(species)]
+            fcoef = I.load_interpolator(f, g)
+            acc = torch.zeros((g.nv, 12), dtype=torch.float32,
+                              device=f.ex.device)
+            diag = dict(state.diag)
+            if species:
+                species, acc, unfinished = FP.fused_push_multi(
+                    species, fcoef, acc, g, qms, max_streak=max_streak)
+                diag["unfinished"] = diag["unfinished"] + unfinished
+            F.clear_jf(f)
+            I.unload_accumulator(f, acc, g)
+            F.synchronize_jf(f, g)
+
+            F.advance_b(f, g, 0.5)
+            F.advance_e(f, g, m, damp)
+            F.advance_b(f, g, 0.5)
+
+            if ce > 0 and step % ce == 0:
+                clean_e(f, species)
+            if cb > 0 and step % cb == 0:
+                clean_b(f)
+            if sy > 0 and step % sy == 0:
+                F.synchronize_tang_e_norm_b(f, g)
+            return SimState(fields=f, species=tuple(species), step=step + 1,
+                            diag=diag)
+
+        return advance
+
+    def make_step(self) -> Callable[[SimState], SimState]:
+        """The full step on one device (no decomposition to lift over)."""
+        return self.make_advance()
+
+    def run(self, state: SimState = None, num_step: int = None,
+            verbose: bool = True) -> SimState:
+        """The main loop (deck/main.cc:121 `while(advance());`), printing
+        status every status_interval steps."""
+        if state is None:
+            state = self.initialize()
+        n = num_step if num_step is not None else self.num_step
+        step_fn = self.make_step()
+        while state.step < n:
+            state = step_fn(state)
+            if (verbose and self.status_interval
+                    and state.step % self.status_interval == 0):
+                print(f"Completed step {state.step} of {n}")
+        return state
+
+    # ---------------- diagnostics ----------------
+
+    def energies(self, state: SimState) -> torch.Tensor:
+        """dump_energies columns (dump.cc:37-77), a float32 device tensor:
+        [ex, ey, ez, bx, by, bz, KE_sp0, KE_sp1, ...]"""
+        g = self.grid
+        f = state.fields
+        en_f = F.all_sum(F.energy_f(f, g, self._material_coeffs()), g)
+        fcoef = I.load_interpolator(f, g)
+        en_p = [F.all_sum(P.energy_p(sp, fcoef, g, st.params.q,
+                                     st.params.m), g)
+                for st, sp in zip(self.species, state.species)]
+        return torch.cat([en_f, torch.stack(en_p)]) if en_p else en_f

@@ -1,0 +1,61 @@
+"""State carried across between the JAX package and the port, as numpy.
+
+``state_from_numpy`` takes a ``vpic_tpu`` ``SimState`` whose leaves are
+numpy arrays (what ``jax.device_get(state)`` returns) and builds the port's
+``SimState`` on a device; ``state_to_numpy`` goes the other way, to plain
+dicts of numpy arrays.  Neither imports the JAX package: the input is read
+by attribute (or key) names, which both packages share.  Values move
+bit-exactly; ``i`` stays int32 and ``live`` bool.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .state import (FIELD_NAMES, SPECIES_NAMES, FieldState, SimState,
+                    SpeciesState)
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _tensor(a, device, dtype=None):
+    arr = np.array(a, order="C")     # a C-ordered copy; 0-d stays 0-d
+    if dtype is not None and arr.dtype != dtype:
+        raise TypeError(f"expected {dtype}, got {arr.dtype}")
+    return torch.from_numpy(arr).to(device)
+
+
+_SPECIES_DTYPES = dict(dx=np.float32, dy=np.float32, dz=np.float32,
+                       i=np.int32, ux=np.float32, uy=np.float32,
+                       uz=np.float32, w=np.float32, live=np.bool_,
+                       np=np.int32)
+
+
+def state_from_numpy(np_state, device="cpu") -> SimState:
+    """A numpy-leaved SimState (object or dict) -> the port's SimState."""
+    f = _get(np_state, "fields")
+    fields = FieldState(**{n: _tensor(_get(f, n), device, np.float32)
+                           for n in FIELD_NAMES})
+    species = tuple(
+        SpeciesState(**{n: _tensor(_get(sp, n), device, _SPECIES_DTYPES[n])
+                        for n in SPECIES_NAMES})
+        for sp in _get(np_state, "species"))
+    diag = _get(np_state, "diag") or {}
+    return SimState(fields=fields, species=species,
+                    step=int(np.asarray(_get(np_state, "step"))),
+                    diag={k: _tensor(v, device) for k, v in diag.items()})
+
+
+def state_to_numpy(state: SimState) -> dict:
+    """The port's SimState -> {"fields": {...}, "species": [{...}, ...],
+    "step": int, "diag": {...}} of numpy arrays."""
+    host = lambda t: t.detach().cpu().numpy().copy()
+    return dict(
+        fields={n: host(getattr(state.fields, n)) for n in FIELD_NAMES},
+        species=[{n: host(getattr(sp, n)) for n in SPECIES_NAMES}
+                 for sp in state.species],
+        step=int(state.step),
+        diag={k: host(v) for k, v in state.diag.items()})
