@@ -6,18 +6,32 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. kernels: builds csrc/fused_push2d.cu for sm_90a (printing ptxas'
-     registers / spills / shared memory), then holds the kernel against its
-     plain PyTorch version on the same 64^2 x 64 ppc harris state at the
-     main path's shapes, and times both with CUDA events;
-  3. reference: a small harris deck run 10 steps on the card and on the CPU
-     (where the plain version runs) must agree;
-  4. the run: the full-width 2-D harris deck (64^2 cells x 64 ppc, 2 species
+  2. build: the three kernels (csrc/fused_push2d.cu, fused_push3d.cu,
+     merge_p.cu) built for sm_90a, one nvcc each, started together; prints
+     ptxas' registers / spills / shared memory;
+  3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
+     on the 64^2 x 64 ppc harris state at the main path's shapes, and times
+     both with CUDA events;
+  4. 2-D reference: a small 2-D harris deck run 10 steps on the card and on
+     the CPU (where the plain versions run) must agree;
+  5. 2-D run: the full-width 2-D harris deck (64^2 cells x 64 ppc, 2 species
      of 131,072 particles) through Simulation's step for 200 steps; the push
-     kernel must have been launched, no streak may be left unfinished and the
-     energy drift must stay below 1e-3 (bench.py's guard).
-Then it prints the kernels' JSON line, the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.
+     kernel must have been launched, no streak may be left unfinished and
+     the energy drift must stay below 1e-3 (bench.py's guard);
+  6. 3-D kernels: at the full-width 3-D harris state (32^3 cells x 128 ppc,
+     2 species of 2,097,152 particles) after its first rebucket, the 3-D
+     push kernel with its residency outbox against its plain version, then
+     the merge kernel against its plain version on that push's exchange
+     plan (bit for bit); both timed with CUDA events;
+  7. 3-D reference: a 16^3 harris deck run 10 steps on the card and on the
+     CPU must agree;
+  8. 3-D run: the full-width 3-D harris deck through the residency step for
+     100 steps (bench.py --deck harris3d's widths and steps); both 3-D
+     kernels must have been launched, no streak left unfinished, drift
+     below 1e-3.
+The kernel launch counts of each run are reset just before it and read just
+after it.  Then it prints the kernels' JSON line, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -29,7 +43,10 @@ import time
 import numpy as np
 
 N_STEPS = 200
+N_STEPS_3D = 100
 REPS = 20
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
 
 def fail(msg):
@@ -51,8 +68,61 @@ def clone_species(species):
             for sp in species]
 
 
+def bound_ms(bytes_moved, flops):
+    """(least time in ms, what bounds it): bytes over the HBM rate against
+    float32 operations over the card's float32 peak."""
+    tb = bytes_moved / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def lane_diff(torch, a, b):
+    """Per live lane: voxels that differ.  Tolerance: at most 1 lane in 1e5
+    may end in the neighbour cell, and only one that lies within 1e-5 of a
+    face (FMA contraction); returns the (N,) bool mask of differing lanes."""
+    live = a.live.cpu().numpy()
+    n_live = int(live.sum())
+    diff = live & (a.i.cpu().numpy() != b.i.cpu().numpy())
+    if diff.sum() > max(1, n_live // 100_000):
+        fail(f"{int(diff.sum())} of {n_live} voxels differ")
+    for sp in (a, b):
+        pos = np.stack([getattr(sp, n).cpu().numpy()[diff]
+                        for n in ("dx", "dy", "dz")])
+        gap = (1.0 - np.abs(pos)).min(axis=0) if diff.any() else []
+        if np.any(np.asarray(gap) > 1e-5):
+            fail("a differing voxel is not at a face")
+    return diff
+
+
+def compare_lanes(torch, k, a, b, diff):
+    """Offsets and momenta of the live lanes whose voxel agrees, to 3e-5."""
+    live = a.live.cpu().numpy()
+    keep = live & ~diff
+    err = 0.0
+    for n in ("dx", "dy", "dz", "ux", "uy", "uz"):
+        x = getattr(a, n).cpu().numpy()[keep]
+        y = getattr(b, n).cpu().numpy()[keep]
+        e = float(np.abs(x - y).max()) if x.size else 0.0
+        if e > 3e-5:
+            fail(f"species {k}.{n}: max abs err {e} > 3e-5")
+        err = max(err, e)
+    print(f"  species {k}: {int(live.sum())} live lanes, {int(diff.sum())} "
+          f"voxel(s) differ at a face")
+    return err
+
+
+def compare_acc(acc_k, acc_r):
+    da, db = acc_k.cpu().numpy(), acc_r.cpu().numpy()
+    e_acc = float(np.abs(da - db).max())
+    scale = float(np.abs(db).max())
+    print(f"  acc: max abs err {e_acc:.3e}, max |acc| {scale:.3e}")
+    if e_acc > 1e-5 * max(scale, 1e-30):
+        fail(f"acc: max abs err {e_acc} > 1e-5 * max|acc|")
+    return e_acc
+
+
 def compare_push(torch, FP, g, species, fcoef, qms):
-    """Kernel vs plain version on the same inputs; returns the max abs
+    """2-D kernel vs plain version on the same inputs; returns the max abs
     error over the compared lane state and accumulator."""
     sk, acc_k, unf_k = FP.fused_push_multi(
         clone_species(species), fcoef,
@@ -67,39 +137,11 @@ def compare_push(torch, FP, g, species, fcoef, qms):
         fail(f"unfinished streaks: kernel {int(unf_k)} plain {int(unf_r)}")
     err = 0.0
     for k, (a, b) in enumerate(zip(sk, sr)):
-        live = a.live.cpu().numpy()
-        n_live = int(live.sum())
-        ia, ib = a.i.cpu().numpy()[live], b.i.cpu().numpy()[live]
-        diff = ia != ib
-        # tolerance: at most 1 lane in 1e5 may end in the neighbour cell,
-        # and only one that lies within 1e-5 of a face (FMA contraction)
-        if diff.sum() > max(1, n_live // 100_000):
-            fail(f"species {k}: {int(diff.sum())} of {n_live} voxels differ")
-        for sp in (a, b):
-            pos = np.stack([getattr(sp, n).cpu().numpy()[live][diff]
-                            for n in ("dx", "dy", "dz")])
-            gap = (1.0 - np.abs(pos)).min(axis=0) if diff.any() else []
-            if np.any(np.asarray(gap) > 1e-5):
-                fail(f"species {k}: a differing voxel is not at a face")
-        for n in ("dx", "dy", "dz", "ux", "uy", "uz"):
-            x = getattr(a, n).cpu().numpy()[live][~diff]
-            y = getattr(b, n).cpu().numpy()[live][~diff]
-            e = float(np.abs(x - y).max()) if x.size else 0.0
-            if e > 3e-5:
-                fail(f"species {k}.{n}: max abs err {e} > 3e-5")
-            err = max(err, e)
-        print(f"  species {k}: {n_live} live lanes, {int(diff.sum())} "
-              f"voxel(s) differ at a face")
-    da, db = acc_k.cpu().numpy(), acc_r.cpu().numpy()
-    e_acc = float(np.abs(da - db).max())
-    scale = float(np.abs(db).max())
-    print(f"  acc: max abs err {e_acc:.3e}, max |acc| {scale:.3e}")
-    if e_acc > 1e-5 * max(scale, 1e-30):
-        fail(f"acc: max abs err {e_acc} > 1e-5 * max|acc|")
-    return max(err, e_acc)
+        err = max(err, compare_lanes(torch, k, a, b, lane_diff(torch, a, b)))
+    return max(err, compare_acc(acc_k, acc_r))
 
 
-def time_push(torch, fn, g, species, fcoef, qms):
+def time_push(torch, fn, g, species, fcoef, qms, **kw):
     """Mean ms of one push of every species, CUDA events around each call,
     each on a fresh copy of the same input lanes."""
     acc = torch.zeros((g.nv, 12), dtype=torch.float32, device=fcoef.device)
@@ -113,7 +155,7 @@ def time_push(torch, fn, g, species, fcoef, qms):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(work, fcoef, acc, g, qms)
+        fn(work, fcoef, acc, g, qms, **kw)
         end.record()
         torch.cuda.synchronize()
         if rep >= 2:                    # two warm-up calls
@@ -121,14 +163,37 @@ def time_push(torch, fn, g, species, fcoef, qms):
     return total / REPS
 
 
-def small_reference(torch, harris):
+def time_call(torch, fn):
+    """Mean ms of fn() between CUDA events, after two warm-up calls."""
+    total = 0.0
+    for rep in range(REPS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if rep >= 2:
+            total += start.elapsed_time(end)
+    return total / REPS
+
+
+def push_bytes(species, g, slots, extra=0):
+    """Bytes a push must move: per live lane 8 words read and 7 written,
+    a live flag per slot, the coefficient table, the accumulator in and
+    out, plus ``extra``."""
+    live = sum(int(sp.live.sum()) for sp in species)
+    return (live * (32 + 28) + slots + g.nv * 72 + 2 * g.nv * 48 + extra,
+            live * 150)
+
+
+def small_reference(torch, harris, p, what):
     """10 steps of a small harris deck on the card and on the CPU (plain
-    version); fields to test_pallas.py's tolerances."""
-    p = harris.HarrisParams(nx=16, ny=16, nppc=4, Lx=8.0, Ly=8.0)
+    versions): fields to 5e-7 + 1e-5 max|a| (test_pallas.py:88-94),
+    energies to 1e-6 of their sum, live counts equal."""
     runs = []
     for dev in ("cuda", "cpu"):
-        sim = harris.build(p)
-        sim.device = torch.device(dev)
+        sim = harris.build(p, device=dev)
         state = sim.run(num_step=10, verbose=False)
         runs.append((sim, state))
     (sim_gpu, gpu), (sim_cpu, cpu) = runs
@@ -136,14 +201,54 @@ def small_reference(torch, harris):
         a = getattr(cpu.fields, n).numpy()
         b = getattr(gpu.fields, n).cpu().numpy()
         if not np.abs(a - b).max() < 5e-7 + 1e-5 * np.abs(a).max():
-            fail(f"small deck: field {n} differs from the CPU run")
+            fail(f"{what}: field {n} differs from the CPU run")
     e_cpu = sim_cpu.energies(cpu).double().numpy()
     e_gpu = sim_gpu.energies(gpu).double().cpu().numpy()
     if not np.isfinite(e_gpu).all() or \
             np.abs(e_cpu - e_gpu).max() / e_cpu.sum() >= 1e-6:
-        fail(f"small deck: energies {e_gpu} vs CPU {e_cpu}")
-    print("reference: 16^2 x 4 ppc harris, 10 steps on the card == CPU "
-          "plain path (fields 5e-7 + 1e-5 max|a|, energies 1e-6 sum)")
+        fail(f"{what}: energies {e_gpu} vs CPU {e_cpu}")
+    for a, b in zip(cpu.species, gpu.species):
+        if int(a.live.sum()) != int(b.live.sum()):
+            fail(f"{what}: live counts differ")
+    if int(gpu.diag["unfinished"]) != 0:
+        fail(f"{what}: unfinished streaks on the card")
+    print(f"reference: {what}, 10 steps on the card == CPU plain path "
+          "(fields 5e-7 + 1e-5 max|a|, energies 1e-6 sum, live counts)")
+
+
+def run_steps(torch, sim, state, n_steps, counters):
+    """n_steps of the deck's step with every kernel count set to 0 just
+    before and read just after; returns (state, seconds, launches)."""
+    step = sim.make_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
+    sim.host_syncs = 0
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return state, elapsed, {k: m.launches for k, m in counters.items()}
+
+
+def check_run(torch, sim, state, e0, what):
+    e1 = sim.energies(state).double().cpu().numpy()
+    unfinished = int(state.diag["unfinished"])
+    drift = abs(e1.sum() - e0.sum()) / e0.sum()
+    if unfinished != 0:
+        fail(f"{what}: {unfinished} streaks left unfinished")
+    if not np.isfinite(e1).all():
+        fail(f"{what}: non-finite energies")
+    if not drift < 1e-3:
+        fail(f"{what}: energy drift {drift}")
+    for sp, st in zip(state.species, sim.species):
+        if tuple(sp.dx.shape) != (st.params.capacity,) or \
+                not torch.isfinite(sp.ux).all():
+            fail(f"{what}: particle state has the wrong shape or "
+                 "non-finite values")
+    return drift, unfinished
 
 
 def main():
@@ -158,28 +263,33 @@ def main():
     from vpic_tpu_torch.models import harris
     from vpic_tpu_torch.ops import _build
     from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
     from vpic_tpu_torch.ops import interp as I
+    from vpic_tpu_torch.ops import residency as RES
 
     card = gpu_name_and_power()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counters = {FP.KERNEL: FP, FP3.KERNEL: FP3, RES.KERNEL: RES}
 
-    # --- phase 2: build, launch, compare with the plain version ---
+    # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
-    lib = _build.build(FP.KERNEL)
-    log = _build.build_log(FP.KERNEL)
-    if "sm_90a" not in log:
-        fail("kernel was not built for sm_90a")
-    print(f"build: {lib.name} for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print("  " + line.strip())
+    libs = _build.build_many(list(counters))
+    print(f"build: {', '.join(lib.name for lib in libs)} for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for name in counters:
+        log = _build.build_log(name)
+        if "sm_90a" not in log:
+            fail(f"{name} was not built for sm_90a")
+        for line in log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(f"  {name}: " + line.strip())
+    results = {}
 
+    # --- phase 3: 2-D kernel against its plain version ---
     sim = harris.build(harris.HarrisParams())
-    sim.device = torch.device("cuda")
     t0 = time.perf_counter()
     state = sim.initialize()
     torch.cuda.synchronize()
@@ -187,11 +297,12 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     g = sim.grid
     qms = [(st.params.q, st.params.m) for st in sim.species]
-    extents = [len(st.xs) for st in sim.species]
+    extents = [st.count for st in sim.species]
     sorted_sp = [FP.bucket_sort_p(sp, g, extent=e)
                  for sp, e in zip(state.species, extents)]
     fcoef = I.load_interpolator(state.fields, g)
-    print("compare: kernel vs plain, first push of the run (sorted lanes)")
+    print("compare: 2-D kernel vs plain, first push of the run (sorted "
+          "lanes)")
     max_err = compare_push(torch, FP, g, sorted_sp, fcoef, qms)
     ms = time_push(torch, FP.fused_push_multi, g, sorted_sp, fcoef, qms)
     plain_ms = time_push(torch, FP.fused_push_multi_ref, g, sorted_sp,
@@ -199,55 +310,218 @@ def main():
     ms2 = time_push(torch, FP.fused_push_multi, g, sorted_sp, fcoef, qms)
     plain_ms2 = time_push(torch, FP.fused_push_multi_ref, g, sorted_sp,
                           fcoef, qms)
-    print(f"timing ({card}): kernel {ms:.4f} / {ms2:.4f} ms, plain "
+    print(f"timing ({card}): 2-D kernel {ms:.4f} / {ms2:.4f} ms, plain "
           f"{plain_ms:.4f} / {plain_ms2:.4f} ms per push of both species "
           f"(CUDA events, mean of {REPS}, order kernel-plain-kernel-plain)")
+    nbytes, flops = push_bytes(sorted_sp, g,
+                               sum(sp.capacity for sp in sorted_sp))
+    bms, bby = bound_ms(nbytes, flops)
+    results[FP.KERNEL] = dict(
+        name=FP.KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/fused_push2d.cu",
+        replaces="vpic_tpu/ops/pallas_push.py:251", max_abs_err=max_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+        library_ms=None)
 
-    # --- phase 3: small deck against the CPU plain path ---
-    small_reference(torch, harris)
+    # --- phase 4: small 2-D deck against the CPU plain path ---
+    small_reference(torch, harris, harris.HarrisParams(
+        nx=16, ny=16, nppc=4, Lx=8.0, Ly=8.0), "16^2 x 4 ppc harris")
 
-    # --- phase 4: the main path, 200 steps ---
+    # --- phase 5: the 2-D main path, 200 steps ---
     n_particles = sum(int(sp.np) for sp in state.species)
     e0 = sim.energies(state).double().cpu().numpy()
-    step = sim.make_step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    FP.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(N_STEPS):
-        state = step(state)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = FP.launches
-    e1 = sim.energies(state).double().cpu().numpy()
-    unfinished = int(state.diag["unfinished"])
-    drift = abs(e1.sum() - e0.sum()) / e0.sum()
+    state, elapsed, launches = run_steps(torch, sim, state, N_STEPS,
+                                         counters)
+    drift, unfinished = check_run(torch, sim, state, e0, "2-D run")
     rate = n_particles * N_STEPS / elapsed
-    print(f"run: {N_STEPS} steps, {n_particles} particles, "
+    print(f"run 2-D: {N_STEPS} steps, {n_particles} particles, "
           f"{elapsed * 1e3 / N_STEPS:.3f} ms/step, {rate:.4e} pushes/s "
           f"({card}, host clock around synchronize)")
-    print(f"run: push kernel launches {launches}, unfinished streaks "
-          f"{unfinished}, energy drift {drift:.3e}, max memory allocated "
+    print(f"run 2-D: launches {launches}, unfinished streaks {unfinished}, "
+          f"host syncs {sim.host_syncs}, energy drift {drift:.3e}, max "
+          "memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if launches < N_STEPS:
-        fail(f"push kernel launched {launches} times in {N_STEPS} steps")
-    if unfinished != 0:
-        fail(f"{unfinished} streaks left unfinished")
-    if not np.isfinite(e1).all():
-        fail("non-finite energies")
-    if not drift < 1e-3:
-        fail(f"energy drift {drift} over {N_STEPS} steps")
-    for sp, st in zip(state.species, sim.species):
-        if tuple(sp.dx.shape) != (st.params.capacity,) or \
-                not torch.isfinite(sp.ux).all():
-            fail("particle state has the wrong shape or non-finite values")
+    if launches[FP.KERNEL] < N_STEPS:
+        fail(f"2-D push kernel launched {launches[FP.KERNEL]} times in "
+             f"{N_STEPS} steps")
+    results[FP.KERNEL]["launches"] = launches[FP.KERNEL]
+    del sim, state, sorted_sp, fcoef
 
-    print(json.dumps({"kernels": [{
-        "name": FP.KERNEL, "route": "cuda",
-        "source": "vpic_tpu_torch/csrc/fused_push2d.cu",
-        "replaces": "vpic_tpu/ops/pallas_push.py:251",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    # --- phase 6: 3-D kernels against their plain versions ---
+    p3 = harris.HarrisParams(nx=32, ny=32, nz=32, nppc=128, Lx=16.0,
+                             Ly=16.0, Lz=16.0)
+    t0 = time.perf_counter()
+    sim = harris.build(p3)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = sim.initialize()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    g = sim.grid
+    res_on, slack = sim._residency_mode()
+    if not res_on:
+        fail("the 32^3 x 128 ppc harris deck does not run residency")
+    print(f"initialize: 32^3 x 128 ppc harris, deck build (host staging) "
+          f"{t_build:.1f} s, initialize() {t_init:.1f} s; residency slack "
+          f"{slack} blocks per brick")
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    n0 = [st.count for st in sim.species]
+    exts = RES.extents(g, n0, slack)
+    species, homes = [], []
+    for sp, n, E in zip(state.species, n0, exts):
+        s, h = FP3.brick_sort_p_home(RES.slice_species(sp, E), g, extent=n,
+                                     slack=slack)
+        species.append(s)
+        homes.append(h)
+    fcoef = I.load_interpolator(state.fields, g)
+    zeros = lambda: torch.zeros((g.nv, 12), device=fcoef.device)
+    kw = dict(homes=homes, residency=True)
+    print("compare: 3-D kernel vs plain, first push after the first "
+          "rebucket (residency outbox)")
+    ker = FP3.fused_push3d_multi(clone_species(species), fcoef, zeros(), g,
+                                 qms, **kw)
+    ref = FP3.fused_push3d_multi_ref(clone_species(species), fcoef, zeros(),
+                                     g, qms, **kw)
+    torch.cuda.synchronize()
+    (sk, acc_k, em_k, obx_k, ores_k, unf_k) = ker
+    (sr, acc_r, em_r, obx_r, ores_r, unf_r) = ref
+    if int(unf_k) != int(unf_r) or int(ores_k) != int(ores_r):
+        fail(f"3-D: unfinished {int(unf_k)}/{int(unf_r)}, ores "
+             f"{int(ores_k)}/{int(ores_r)} (kernel/plain)")
+    err3 = 0.0
+    blk0 = 0
+    n_emit = 0
+    for k, (a, b) in enumerate(zip(sk, sr)):
+        diff = lane_diff(torch, a, b)
+        err3 = max(err3, compare_lanes(torch, k, a, b, diff))
+        ea, eb = em_k[k].cpu().numpy(), em_r[k].cpu().numpy()
+        if not np.array_equal(ea[~diff], eb[~diff]):
+            fail(f"3-D species {k}: emit marks differ")
+        n_emit += int(ea.sum())
+        # outbox columns of every block whose lanes' voxels all agree
+        nb = a.capacity // FP3.BLOCK
+        ok_blk = ~diff.reshape(nb, FP3.BLOCK).any(1)
+        cols = ((blk0 + np.nonzero(ok_blk)[0])[:, None] * FP3.OUT_CAP
+                + np.arange(FP3.OUT_CAP)[None, :]).reshape(-1)
+        for name in ("valid", "vox"):
+            x = getattr(obx_k, name).cpu().numpy()[cols]
+            y = getattr(obx_r, name).cpu().numpy()[cols]
+            if not np.array_equal(x, y):
+                fail(f"3-D species {k}: outbox {name} differs")
+        e = float(np.abs(obx_k.f.cpu().numpy()[:, cols]
+                         - obx_r.f.cpu().numpy()[:, cols]).max())
+        if e > 3e-5:
+            fail(f"3-D species {k}: outbox rows max abs err {e} > 3e-5")
+        err3 = max(err3, e)
+        blk0 += nb
+    err3 = max(err3, compare_acc(acc_k, acc_r))
+    print(f"  outbox: {n_emit} leavers emitted, {int(ores_k)} past the cap")
+    ms3 = time_push(torch, FP3.fused_push3d_multi, g, species, fcoef, qms,
+                    **kw)
+    plain3 = time_push(torch, FP3.fused_push3d_multi_ref, g, species, fcoef,
+                       qms, **kw)
+    ms3b = time_push(torch, FP3.fused_push3d_multi, g, species, fcoef, qms,
+                     **kw)
+    plain3b = time_push(torch, FP3.fused_push3d_multi_ref, g, species,
+                        fcoef, qms, **kw)
+    print(f"timing ({card}): 3-D kernel {ms3:.4f} / {ms3b:.4f} ms, plain "
+          f"{plain3:.4f} / {plain3b:.4f} ms per push of both species "
+          f"(CUDA events, mean of {REPS}, order kernel-plain-kernel-plain)")
+    slots = sum(sp.capacity for sp in species)
+    M = obx_k.vox.shape[0]
+    nbytes, flops = push_bytes(species, g, slots,
+                               extra=slots + M * 33 + 4 * (M // 128))
+    bms, bby = bound_ms(nbytes, flops)
+    results[FP3.KERNEL] = dict(
+        name=FP3.KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/fused_push3d.cu",
+        replaces="vpic_tpu/ops/pallas_push3d.py:369", max_abs_err=err3,
+        ms=ms3, plain_ms=plain3, bound_ms=bms, bound_by=bby,
+        library_ms=None)
+
+    # the merge on the kernel push's exchange plan
+    _, spid, usable = RES.static_layout(exts)
+    free_j = RES.block_counts(sk, em_k)
+    compact, starts_j, a_j, overflow, stats = RES.plan_exchange(
+        obx_k, torch.cat(homes), spid, usable, free_j, g)
+    if bool(overflow):
+        fail("3-D: the first exchange plan overflows (the step would "
+             "rebucket), so the merge would not run")
+    mk = RES.merge_p(sk, em_k, compact, starts_j, a_j)
+    mr = RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(mk, mr)):
+        for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w"):
+            x, y = getattr(a, n), getattr(b, n)
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                fail(f"merge species {k}.{n}: kernel differs from plain")
+        if not torch.equal(a.live, b.live) or int(a.np) != int(b.np):
+            fail(f"merge species {k}: live lanes differ")
+    routed = int(stats[0])
+    print(f"compare: merge kernel == plain version in every lane, bit for "
+          f"bit ({routed} rows routed, {int(a_j.sum())} placed)")
+    merge_ms = time_call(torch, lambda: RES.merge_p(sk, em_k, compact,
+                                                    starts_j, a_j))
+    merge_plain = time_call(torch, lambda: RES.merge_p_ref(
+        sk, em_k, compact, starts_j, a_j))
+    merge_ms2 = time_call(torch, lambda: RES.merge_p(sk, em_k, compact,
+                                                     starts_j, a_j))
+    merge_plain2 = time_call(torch, lambda: RES.merge_p_ref(
+        sk, em_k, compact, starts_j, a_j))
+    print(f"timing ({card}): merge kernel {merge_ms:.4f} / {merge_ms2:.4f} "
+          f"ms, plain {merge_plain:.4f} / {merge_plain2:.4f} ms per merge "
+          f"of both species (CUDA events, mean of {REPS}, "
+          "kernel-plain-kernel-plain)")
+    # bytes: live + emit per slot, keepers' 8 words read, newcomers' 8
+    # words read, starts and counts, every slot's 8 words + live written
+    keepers = sum(int((s.live & ~e).sum()) for s, e in zip(sk, em_k))
+    nbytes = (slots * 2 + keepers * 32 + int(a_j.sum()) * 32
+              + 8 * a_j.shape[0] + slots * 33)
+    bms, bby = bound_ms(nbytes, 0)
+    results[RES.KERNEL] = dict(
+        name=RES.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/merge_p.cu",
+        replaces="vpic_tpu/ops/residency.py:232", max_abs_err=0.0,
+        ms=merge_ms, plain_ms=merge_plain, bound_ms=bms, bound_by=bby,
+        library_ms=None)
+    del ker, ref, sk, sr, mk, mr, compact, species, fcoef
+
+    # --- phase 7: small 3-D deck against the CPU plain path ---
+    small_reference(torch, harris, harris.HarrisParams(
+        nx=16, ny=16, nz=16, nppc=4, Lx=8.0, Ly=8.0, Lz=8.0, headroom=6.0),
+        "16^3 x 4 ppc harris (residency)")
+
+    # --- phase 8: the 3-D residency path, 100 steps ---
+    n_particles = sum(int(sp.np) for sp in state.species)
+    e0 = sim.energies(state).double().cpu().numpy()
+    state, elapsed, launches = run_steps(torch, sim, state, N_STEPS_3D,
+                                         counters)
+    drift, unfinished = check_run(torch, sim, state, e0, "3-D run")
+    rebuckets = int(state.diag["_res_rebuckets"])
+    rate = n_particles * N_STEPS_3D / elapsed
+    print(f"run 3-D: {N_STEPS_3D} steps, {n_particles} particles, "
+          f"{elapsed * 1e3 / N_STEPS_3D:.3f} ms/step, {rate:.4e} pushes/s "
+          f"({card}, host clock around synchronize)")
+    print(f"run 3-D: launches {launches}, rebuckets {rebuckets}, host syncs "
+          f"{sim.host_syncs}, unfinished streaks {unfinished}, energy drift "
+          f"{drift:.3e}, max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+          f"initialize() {t_init:.1f} s")
+    nsp = len(state.species)
+    if launches[FP3.KERNEL] < N_STEPS_3D:
+        fail(f"3-D push kernel launched {launches[FP3.KERNEL]} times")
+    if launches[RES.KERNEL] != nsp * (N_STEPS_3D - rebuckets) or \
+            launches[RES.KERNEL] == 0:
+        fail(f"merge kernel launched {launches[RES.KERNEL]} times with "
+             f"{rebuckets} rebuckets in {N_STEPS_3D} steps")
+    if sim.host_syncs != N_STEPS_3D:
+        fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps")
+    results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
+    results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in results.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

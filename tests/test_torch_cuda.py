@@ -76,8 +76,8 @@ def test_kernel_builds_for_sm_90a(cuda):
 @pytest.mark.parametrize("nx,nppc", [(16, 4), (64, 64)])
 def test_kernel_matches_plain_on_harris(cuda, nx, nppc):
     sim = harris.build(harris.HarrisParams(nx=nx, ny=nx, nppc=nppc,
-                                           Lx=nx / 4, Ly=nx / 4))
-    sim.device = cuda
+                                           Lx=nx / 4, Ly=nx / 4),
+                       device=cuda)
     state = sim.initialize()
     g = sim.grid
     species = [FP.bucket_sort_p(sp, g) for sp in state.species]
@@ -161,8 +161,7 @@ def test_harris_run_on_card_matches_cpu(cuda):
     p = harris.HarrisParams(nx=16, ny=16, nppc=4, Lx=8.0, Ly=8.0)
     runs = []
     for dev in (cuda, torch.device("cpu")):
-        sim = harris.build(p)
-        sim.device = dev
+        sim = harris.build(p, device=dev)
         runs.append((sim, sim.run(num_step=10, verbose=False)))
     (sg, gpu), (sc, cpu) = runs
     for n in ("jfx", "ex", "ey", "cbz"):

@@ -62,7 +62,7 @@ def test_unload_accumulator_matches_jax(grid):
 def test_remote_and_decomposed_raise():
     g = GT.partition_periodic_box(0, 0, 0, 1, 1, 1, 4, 4, 4).with_bc(
         0, fbc=GT.REMOTE)
-    f = ST.FieldState.zeros(g)
+    f = ST.FieldState.zeros(g, "cpu")
     with pytest.raises(NotImplementedError):
         FT.ghost_norm_e(f, g)
     sharded = dataclasses.replace(g, topology=(2, 1, 1))

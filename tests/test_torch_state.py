@@ -39,8 +39,16 @@ def test_flat_rank_is_not_ported():
         grid_torch.flat_rank(grid_torch.Grid(nx=4, ny=4, nz=1))
 
 
-def test_host_packs_bit_equal():
-    sj, st = build_pair()
+# the 2-D deck, and a 3-D harris at the 3-D path's widths cut to 16^3
+PACK_DECKS = {"2d": {}, "3d": dict(nx=16, ny=16, nz=16, nppc=2, Lx=8.0,
+                                   Ly=8.0, Lz=8.0)}
+
+
+@pytest.mark.parametrize("deck", sorted(PACK_DECKS))
+def test_host_packs_bit_equal(deck):
+    """The port stages harris's particles with one vectorized
+    inject_particles per species; vpic_tpu injects them pair by pair."""
+    sj, st = build_pair(**PACK_DECKS[deck])
     spj, urbj, _ = sj._pack_species()
     spt, urbt = st._pack_species()
     for a, b, ua, ub in zip(spj, spt, urbj, urbt):
@@ -70,7 +78,7 @@ def test_material_coeffs_equal():
 def test_interop_round_trip_bit_exact(pair):
     _, _, s_jax, _ = pair
     host = jax.device_get(s_jax)
-    back = state_to_numpy(state_from_numpy(host))
+    back = state_to_numpy(state_from_numpy(host, device="cpu"))
     for n in FIELD_NAMES:
         x, y = np.asarray(getattr(host.fields, n)), back["fields"][n]
         assert x.dtype == y.dtype and np.array_equal(x, y), n
@@ -113,9 +121,42 @@ def test_state_dtypes(pair):
     assert sp.i.dtype == torch.int32 and sp.live.dtype == torch.bool
     assert s_t.step == 0 and isinstance(s_t.step, int)
     assert set(s_t.diag) == {"unfinished"}
+    assert s_t.fields.ex.device.type == "cpu"
 
 
 def test_to_torch_helper_matches_initialize(pair):
     _, _, s_jax, s_t = pair
     moved = to_torch(s_jax)
     assert_close_rel(moved.fields.cbz, s_t.fields.cbz, 1e-5, 5e-7)
+
+
+def test_inject_particles_matches_one_at_a_time():
+    """Array injection stages exactly the rows of the scalar loop: the same
+    double-precision conversion, the x1 edge folded into the last cell, and
+    out-of-box particles skipped, after earlier single injections."""
+    import vpic_tpu_torch as vt
+    rng = np.random.default_rng(1)
+    n = 500
+    x = rng.uniform(-0.1, 2.1, n)
+    x[:3] = (0.0, 2.0, 1.0)
+    y, z = rng.uniform(0, 3.0, n), rng.uniform(0, 1.0, n)
+    u = rng.normal(size=(3, n))
+    w = rng.uniform(0.5, 1.5, n)
+    sims = []
+    for vec in (False, True):
+        sim = vt.Simulation(device="cpu")
+        sim.define_periodic_grid((0, 0, 0), (2.0, 3.0, 1.0), (8, 6, 4))
+        sp = sim.define_species("e", -1.0, 1.0, 2 * n)
+        sim.inject_particle(sp, 0.5, 0.5, 0.5, 0.1, 0.2, 0.3, 1.0)
+        if vec:
+            sim.inject_particles(sp, x, y, z, *u, w)
+        else:
+            for k in range(n):
+                sim.inject_particle(sp, x[k], y[k], z[k], *u[:, k], w[k])
+        sims.append(sim)
+    a, b = (s_.species[0].rows() for s_ in sims)
+    assert a.shape == b.shape and 1 < len(a) < n + 1
+    assert np.array_equal(a, b)
+    pa, pb = (s_._pack_species()[0][0] for s_ in sims)
+    for name in SPECIES_NAMES:
+        assert torch.equal(getattr(pa, name), getattr(pb, name)), name

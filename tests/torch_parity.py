@@ -23,12 +23,13 @@ def build_pair(**kw):
     """(vpic_tpu Simulation, vpic_tpu_torch Simulation) of one harris deck."""
     params = dict(SMALL, **kw)
     return (harris_jax.build(harris_jax.HarrisParams(**params)),
-            harris_torch.build(harris_torch.HarrisParams(**params)))
+            harris_torch.build(harris_torch.HarrisParams(**params),
+                               device="cpu"))
 
 
 def to_torch(jax_state, device="cpu"):
     """A vpic_tpu SimState as the port's SimState."""
-    return state_from_numpy(jax.device_get(jax_state), device)
+    return state_from_numpy(jax.device_get(jax_state), device=device)
 
 
 def to_jax(torch_state):
@@ -118,3 +119,40 @@ def check_field_op(fn_jax, fn_torch, grid, rel=1e-6, seed=0):
     assert out_j.keys() == out_t.keys()
     for n in out_j:
         assert_close_rel(out_j[n], out_t[n], rel, 0.0, n)
+
+
+def build3d_pair(walls=False, n_particles=5000, seed=0):
+    """(vpic_tpu Simulation, vpic_tpu_torch Simulation on the CPU) of the
+    16^3 deck of tests/test_pallas3d.py: one electron species of
+    ``n_particles`` warm particles in a periodic box with a standing wave.
+    ``walls`` adds PEC field faces and reflecting particle faces at +-x
+    (the port has no absorbing particle faces yet, so the z faces stay
+    periodic)."""
+    import vpic_tpu as vj
+    import vpic_tpu_torch as vt
+    sims = []
+    for pkg, kw in ((vj, {}), (vt, {"device": "cpu"})):
+        sim = pkg.Simulation(seed=5, **kw)
+        sim.define_units(1.0, 1.0)
+        n = 16
+        g0 = pkg.partition_periodic_box(0, 0, 0, 1, 1, 1, n, n, n)
+        sim.define_timestep(0.6 * g0.courant_length())
+        sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (n, n, n))
+        if walls:
+            for side in (-1, 1):
+                sim.set_domain_field_bc(pkg.BOUNDARY(side, 0, 0), pkg.PEC)
+                sim.set_domain_particle_bc(pkg.BOUNDARY(side, 0, 0),
+                                           pkg.REFLECT_PARTICLES)
+        sim.define_material("vacuum", 1.0)
+        sim.define_field_array(damp=0.0)
+        el = sim.define_species("e", -1.0, 1.0, 24000, -1, 4, 1)
+        rng = np.random.default_rng(seed)
+        for _ in range(n_particles):
+            sim.inject_particle(el, *rng.uniform(0.01, 0.99, 3),
+                                *rng.normal(0, 0.4, 3), 1.0)
+        sim.set_region_field(
+            pkg.everywhere, ey=lambda x, y, z: 0.05 * np.cos(2 * np.pi * x),
+            bz=lambda x, y, z: 0.05 * np.cos(2 * np.pi * x))
+        sims.append(sim)
+    sims[0].use_pallas = True
+    return tuple(sims)

@@ -1,13 +1,17 @@
 """vpic_tpu_torch: the PyTorch + CUDA port of vpic_tpu, for one NVIDIA GPU.
 
-Plain tensor code is PyTorch; the particle push of the main path is a CUDA
-kernel written by hand for Hopper (csrc/fused_push2d.cu), with a plain
-PyTorch twin that CPU tensors use.  vpic_tpu stays the reference: every
-module here keeps its counterpart's name and is tested against it.
+Plain tensor code is PyTorch; the particle pushes and the residency merge
+are CUDA kernels written by hand for Hopper (csrc/fused_push2d.cu,
+fused_push3d.cu, merge_p.cu), each with a plain PyTorch twin that CPU
+tensors use.  The entry points run on the CUDA card unless the caller asks
+for the CPU.  vpic_tpu stays the reference: every module here keeps its
+counterpart's name and is tested against it.
 
 Layer map:
   deck.Simulation     -- input-deck vocabulary + step orchestration
-  ops.fused_push      -- bucket sort + the CUDA push kernel (main path)
+  ops.fused_push      -- bucket sort + the 2-D CUDA push kernel
+  ops.fused_push3d    -- brick sort + the 3-D CUDA push kernel (outboxes)
+  ops.residency       -- per-brick residency: exchange plan + CUDA merge
   ops.push            -- particle engine, plain path (advance_p/sort/energy/rho)
   ops.fields          -- Yee FDTD solver, div cleaners, BCs, synchronization
   ops.interp          -- interpolator / accumulator field<->particle interface

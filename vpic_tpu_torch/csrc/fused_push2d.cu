@@ -7,21 +7,12 @@
 // advance_p computes for periodic and reflecting particle faces; its plain
 // PyTorch twin is vpic_tpu_torch/ops/push.py::advance_p.
 //
-// One thread per particle lane:
-//   1. read the lane's 18 interpolator coefficients straight from the
-//      (nv, 18) load_interpolator table;
-//   2. half E kick, relativistic Boris rotation (the reference's tan(theta/2)
-//      expansion), half E kick -- push.py:192-222;
-//   3. streak walk of at most max_streak rounds with the reference's
-//      tie-break (x, y, z, strict <; end-of-track 2.0 wins ties) and BIG-guarded
-//      divisions -- push.py:394-415; each round deposits the 12 quarter-face
-//      currents of _accumulate_j_cols (push.py:224-245) with atomicAdd into
-//      the (nv, 12) float32 accumulator;
-//   4. periodic faces wrap to the canonical cell and reflecting faces bounce in
-//      place, as push.py:528-543 does.  No particle ever sits in a ghost cell.
-// The particle arrays are updated IN PLACE; dead lanes pass through untouched.
-// Lanes still walking after max_streak rounds are counted into *unfinished.
-// The kernel allocates nothing.
+// One thread per particle lane runs push_lane() (push_lane.cuh, shared with
+// the 3-D kernel): coefficient read, Boris push, streak walk with atomicAdd
+// deposits into the (nv, 12) float32 accumulator, periodic wrap and
+// reflecting bounce.  The particle arrays are updated IN PLACE; dead lanes
+// pass through untouched.  Lanes still walking after max_streak rounds are
+// counted into *unfinished.  The kernel allocates nothing.
 //
 // What bounds it on the H100: memory and atomic throughput, not FLOPs.  Per
 // lane it reads ~40 bytes of particle state plus a 72-byte coefficient row and
@@ -39,11 +30,12 @@
 
 #include <cuda_runtime.h>
 
+#include "push_lane.cuh"
+
 namespace {
 
-constexpr float ONE_THIRD = (float)(1.0 / 3.0);
-constexpr float TWO_FIFTEENTHS = (float)(2.0 / 15.0);
-constexpr float BIG = 3.4e38f;
+using vpic_push::Lane;
+using vpic_push::PushParams;
 
 struct PushArgs {
   float* dx;
@@ -55,168 +47,34 @@ struct PushArgs {
   float* uz;
   const float* w;
   const bool* live;
-  const float* fcoef;  // (nv, 18)
-  float* acc;          // (nv, 12)
-  int* unfinished;     // (1,)
+  int* unfinished;  // (1,)
   int n;
-  float qdt_2mc;
-  float qsp;
-  float cdt_dx, cdt_dy, cdt_dz;
-  int nx, ny, nz;
-  int periodic_x, periodic_y, periodic_z;
-  int max_streak;
+  PushParams pp;
 };
-
-// Four quarter-face currents of one component (push.py:229-239).
-__device__ __forceinline__ void quad(float* a, float qu, float dY, float dZ,
-                                     float v5) {
-  float v1 = qu * dY;
-  float v0 = qu - v1;
-  v1 = v1 + qu;
-  const float c = 1.0f + dZ;
-  const float v2 = v0 * c;
-  const float v3 = v1 * c;
-  const float d = 1.0f - dZ;
-  v0 = v0 * d;
-  v1 = v1 * d;
-  atomicAdd(a + 0, v0 + v5);
-  atomicAdd(a + 1, v1 - v5);
-  atomicAdd(a + 2, v2 - v5);
-  atomicAdd(a + 3, v3 + v5);
-}
-
-// One face crossing along one axis: the particle is put on the face, then
-// either moves into the neighbour cell, wraps (periodic) or bounces
-// (reflecting).  Mirrors the per-axis logic of push.py:443-565.
-__device__ __forceinline__ void cross(float& pos, float& disp, float& u,
-                                      int& coord, float dir, int n,
-                                      int periodic) {
-  pos = dir;
-  const int newc = coord + (dir > 0.0f ? 1 : -1);
-  if (newc >= 1 && newc <= n) {
-    coord = newc;
-    pos = -pos;
-  } else if (periodic) {
-    coord = newc < 1 ? n : 1;
-    pos = -pos;
-  } else {
-    u = -u;
-    disp = -disp;
-  }
-}
 
 __global__ void fused_push2d_kernel(PushArgs p) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= p.n || !p.live[k]) return;
 
-  const int NX = p.nx + 2;
-  const int NY = p.ny + 2;
-  const int SZ = NX * NY;
+  Lane L;
+  L.px = p.dx[k];
+  L.py = p.dy[k];
+  L.pz = p.dz[k];
+  L.ux = p.ux[k];
+  L.uy = p.uy[k];
+  L.uz = p.uz[k];
+  if (vpic_push::push_lane(p.pp, p.vox[k], p.w[k], L))
+    atomicAdd(p.unfinished, 1);
 
-  float px = p.dx[k];
-  float py = p.dy[k];
-  float pz = p.dz[k];
-  const int v = p.vox[k];
-
-  const float* r = p.fcoef + (size_t)v * 18;
-  float c[18];
-#pragma unroll
-  for (int j = 0; j < 18; ++j) c[j] = __ldg(r + j);
-
-  const float qdt = p.qdt_2mc;
-  const float hax = qdt * ((c[0] + py * c[1]) + pz * (c[2] + py * c[3]));
-  const float hay = qdt * ((c[4] + pz * c[5]) + px * (c[6] + pz * c[7]));
-  const float haz = qdt * ((c[8] + px * c[9]) + py * (c[10] + px * c[11]));
-  const float cbx = c[12] + px * c[13];
-  const float cby = c[14] + py * c[15];
-  const float cbz = c[16] + pz * c[17];
-
-  float ux = p.ux[k] + hax;
-  float uy = p.uy[k] + hay;
-  float uz = p.uz[k] + haz;
-  const float v0 = qdt * (1.0f / sqrtf(1.0f + (ux * ux + (uy * uy + uz * uz))));
-  const float v1 = cbx * cbx + (cby * cby + cbz * cbz);
-  const float v2 = (v0 * v0) * v1;
-  const float v3 = v0 * (1.0f + v2 * (ONE_THIRD + v2 * TWO_FIFTEENTHS));
-  float v4 = v3 / (1.0f + v1 * (v3 * v3));
-  v4 = v4 + v4;
-  const float t0 = ux + v3 * (uy * cbz - uz * cby);
-  const float t1 = uy + v3 * (uz * cbx - ux * cbz);
-  const float t2 = uz + v3 * (ux * cby - uy * cbx);
-  ux = ux + v4 * (t1 * cbz - t2 * cby);
-  uy = uy + v4 * (t2 * cbx - t0 * cbz);
-  uz = uz + v4 * (t0 * cby - t1 * cbx);
-  ux = ux + hax;
-  uy = uy + hay;
-  uz = uz + haz;
-
-  const float rg = 1.0f / sqrtf(1.0f + (ux * ux + (uy * uy + uz * uz)));
-  float dpx = ux * p.cdt_dx * rg;
-  float dpy = uy * p.cdt_dy * rg;
-  float dpz = uz * p.cdt_dz * rg;
-
-  int zi = v / SZ;
-  const int rem = v - zi * SZ;
-  int yi = rem / NX;
-  int xi = rem - yi * NX;
-
-  const float q0 = p.qsp * p.w[k];
-  bool active = true;
-  for (int round = 0; round < p.max_streak; ++round) {
-    const float dirx = dpx > 0.0f ? 1.0f : -1.0f;
-    const float diry = dpy > 0.0f ? 1.0f : -1.0f;
-    const float dirz = dpz > 0.0f ? 1.0f : -1.0f;
-    const float s0 = dpx == 0.0f ? BIG : (dirx - px) / dpx;
-    const float s1 = dpy == 0.0f ? BIG : (diry - py) / dpy;
-    const float s2 = dpz == 0.0f ? BIG : (dirz - pz) / dpz;
-    float s = 2.0f;
-    int axis = 3;
-    if (s0 < s) { s = s0; axis = 0; }
-    if (s1 < s) { s = s1; axis = 1; }
-    if (s2 < s) { s = s2; axis = 2; }
-    const float frac = 0.5f * s;
-
-    const float sdx = dpx * frac;
-    const float sdy = dpy * frac;
-    const float sdz = dpz * frac;
-    const float midx = px + sdx;
-    const float midy = py + sdy;
-    const float midz = pz + sdz;
-
-    float* a = p.acc + (size_t)(xi + NX * (yi + NY * zi)) * 12;
-    const float v5 = q0 * sdx * sdy * sdz * ONE_THIRD;
-    quad(a + 0, q0 * sdx, midy, midz, v5);
-    quad(a + 4, q0 * sdy, midz, midx, v5);
-    quad(a + 8, q0 * sdz, midx, midy, v5);
-
-    dpx = dpx - sdx;
-    dpy = dpy - sdy;
-    dpz = dpz - sdz;
-    px = px + sdx + sdx;
-    py = py + sdy + sdy;
-    pz = pz + sdz + sdz;
-
-    if (axis == 3) {
-      active = false;
-      break;
-    }
-    if (axis == 0) {
-      cross(px, dpx, ux, xi, dirx, p.nx, p.periodic_x);
-    } else if (axis == 1) {
-      cross(py, dpy, uy, yi, diry, p.ny, p.periodic_y);
-    } else {
-      cross(pz, dpz, uz, zi, dirz, p.nz, p.periodic_z);
-    }
-  }
-  if (active) atomicAdd(p.unfinished, 1);
-
-  p.dx[k] = px;
-  p.dy[k] = py;
-  p.dz[k] = pz;
-  p.vox[k] = xi + NX * (yi + NY * zi);
-  p.ux[k] = ux;
-  p.uy[k] = uy;
-  p.uz[k] = uz;
+  const int NX = p.pp.nx + 2;
+  const int NY = p.pp.ny + 2;
+  p.dx[k] = L.px;
+  p.dy[k] = L.py;
+  p.dz[k] = L.pz;
+  p.vox[k] = L.xi + NX * (L.yi + NY * L.zi);
+  p.ux[k] = L.ux;
+  p.uy[k] = L.uy;
+  p.uz[k] = L.uz;
 }
 
 }  // namespace
@@ -239,22 +97,22 @@ extern "C" int fused_push2d(float* dx, float* dy, float* dz, int* vox,
   a.uz = uz;
   a.w = w;
   a.live = live;
-  a.fcoef = fcoef;
-  a.acc = acc;
   a.unfinished = unfinished;
   a.n = n;
-  a.qdt_2mc = qdt_2mc;
-  a.qsp = qsp;
-  a.cdt_dx = cdt_dx;
-  a.cdt_dy = cdt_dy;
-  a.cdt_dz = cdt_dz;
-  a.nx = nx;
-  a.ny = ny;
-  a.nz = nz;
-  a.periodic_x = periodic_x;
-  a.periodic_y = periodic_y;
-  a.periodic_z = periodic_z;
-  a.max_streak = max_streak;
+  a.pp.fcoef = fcoef;
+  a.pp.acc = acc;
+  a.pp.qdt_2mc = qdt_2mc;
+  a.pp.qsp = qsp;
+  a.pp.cdt_dx = cdt_dx;
+  a.pp.cdt_dy = cdt_dy;
+  a.pp.cdt_dz = cdt_dz;
+  a.pp.nx = nx;
+  a.pp.ny = ny;
+  a.pp.nz = nz;
+  a.pp.periodic_x = periodic_x;
+  a.pp.periodic_y = periodic_y;
+  a.pp.periodic_z = periodic_z;
+  a.pp.max_streak = max_streak;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   fused_push2d_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);

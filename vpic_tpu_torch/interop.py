@@ -34,8 +34,19 @@ _SPECIES_DTYPES = dict(dx=np.float32, dy=np.float32, dz=np.float32,
                        np=np.int32)
 
 
-def state_from_numpy(np_state, device="cpu") -> SimState:
-    """A numpy-leaved SimState (object or dict) -> the port's SimState."""
+# diag entries the port keeps as host values, not device tensors
+HOST_DIAG = {"_res_valid": bool}
+
+
+def _diag_value(name, v, device):
+    if name in HOST_DIAG:
+        return HOST_DIAG[name](np.asarray(v))
+    return _tensor(v, device)
+
+
+def state_from_numpy(np_state, device="cuda") -> SimState:
+    """A numpy-leaved SimState (object or dict) -> the port's SimState on
+    ``device`` (the card unless the caller asks for the CPU)."""
     f = _get(np_state, "fields")
     fields = FieldState(**{n: _tensor(_get(f, n), device, np.float32)
                            for n in FIELD_NAMES})
@@ -46,13 +57,15 @@ def state_from_numpy(np_state, device="cpu") -> SimState:
     diag = _get(np_state, "diag") or {}
     return SimState(fields=fields, species=species,
                     step=int(np.asarray(_get(np_state, "step"))),
-                    diag={k: _tensor(v, device) for k, v in diag.items()})
+                    diag={k: _diag_value(k, v, device)
+                          for k, v in diag.items()})
 
 
 def state_to_numpy(state: SimState) -> dict:
     """The port's SimState -> {"fields": {...}, "species": [{...}, ...],
     "step": int, "diag": {...}} of numpy arrays."""
-    host = lambda t: t.detach().cpu().numpy().copy()
+    host = lambda t: (t.detach().cpu().numpy().copy()
+                      if isinstance(t, torch.Tensor) else np.asarray(t))
     return dict(
         fields={n: host(getattr(state.fields, n)) for n in FIELD_NAMES},
         species=[{n: host(getattr(sp, n)) for n in SPECIES_NAMES}

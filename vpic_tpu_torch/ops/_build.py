@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel lives in ``vpic_tpu_torch/csrc/<name>.cu`` with a plain
-``extern "C"`` interface.  At first use it is compiled with nvcc into a
-shared library under ``build/kernels/`` at the root of the checkout (named
-by a hash of its source and flags, so an edited source rebuilds) and loaded
-with ctypes.  Nothing here runs at import: a machine without nvcc can import
+``extern "C"`` interface; shared device code lives in ``csrc/*.cuh``
+headers, found through ``-I csrc``.  At first use a kernel is compiled with
+nvcc into a shared library under ``build/kernels/`` at the root of the
+checkout, named by a hash of its source, of every header it includes
+(followed recursively) and of the flags, so an edited source or header
+rebuilds, and loaded with ctypes.  Nothing here runs at import: a machine without nvcc can import
 the package and use the plain versions on CPU tensors.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,30 +43,71 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str):
+    """csrc/<name>.cu followed by every csrc header it includes, directly or
+    through another header, each once, in the order first reached."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(CSRC / inc.decode())
+    return seen
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = _digest(name)
     base = BUILD_DIR / f"{name}-{digest}"
     return src, base.with_suffix(".so"), base.with_suffix(".log")
 
 
+def build_many(names) -> list:
+    """Compile every csrc/<name>.cu in ``names`` that has no up-to-date
+    library yet, one nvcc process per source, all started together; returns
+    the libraries' paths in order.  The compiler's output (``-Xptxas -v``:
+    registers, spills, shared memory per kernel) is kept beside each, see
+    build_log."""
+    jobs = []
+    for name in names:
+        src, lib, log = _paths(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, lib, log, tmp, cmd, proc))
+    failed = []
+    for src, lib, log, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{out}")
+            continue
+        log.write_text(" ".join(cmd) + "\n" + out)
+        os.replace(tmp, lib)    # atomic: concurrent builders never see a partial
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_paths(name)[1] for name in names]
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless an up-to-date library exists; returns
-    the library's path.  The compiler's output (``-Xptxas -v``: registers,
-    spills, shared memory per kernel) is kept beside it, see build_log."""
-    src, lib, log = _paths(name)
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}{res.stderr}")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    os.replace(tmp, lib)    # atomic: concurrent builders never see a partial
-    return lib
+    the library's path (see build_many)."""
+    return build_many([name])[0]
 
 
 def build_log(name: str) -> str:

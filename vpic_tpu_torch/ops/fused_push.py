@@ -48,6 +48,18 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def packed_src_sort(b: torch.Tensor, rows: int, nkeys: int):
+    """Stable sort of ``rows`` lanes by small key ``b`` (values < nkeys);
+    returns (b_sorted, src) with src the per-output-slot SOURCE index
+    (int32).  The JAX package packs (key, slot) into one uint32 so its sort
+    is stable for free; a stable torch.sort gives the same order, since the
+    slot suffix there breaks ties in slot order."""
+    if b.shape[0] != rows:
+        raise ValueError(f"{b.shape[0]} keys for {rows} rows")
+    b_sorted, src = torch.sort(b, stable=True)
+    return b_sorted, src.to(torch.int32)
+
+
 def bucket_sort_p(sp: SpeciesState, g: Grid, bucket: int = BUCKET,
                   extent: int = 0) -> SpeciesState:
     """Stable sort of the lanes by voxel bucket (i // bucket), live lanes
@@ -63,8 +75,8 @@ def bucket_sort_p(sp: SpeciesState, g: Grid, bucket: int = BUCKET,
                           "live")})
     key = torch.where(head.live, torch.div(head.i, bucket,
                                            rounding_mode="floor"), nb)
-    src = torch.sort(key, stable=True).indices
-    moved = gather_sp_rows(src, head)
+    _, src = packed_src_sort(key, E, nb + 1)
+    moved = gather_sp_rows(src.long(), head)
     if E < N:
         moved = {n: torch.cat([m, getattr(sp, n)[E:]])
                  for n, m in moved.items()}

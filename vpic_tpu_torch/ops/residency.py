@@ -1,0 +1,351 @@
+"""Per-brick bucketed residency for the 3-D path (counterpart of
+``vpic_tpu/ops/residency.py``).
+
+Particles live in fixed per-brick block regions, set up by the quantized
+brick sort with ``slack`` empty blocks per brick, and migrate incrementally:
+
+* the push kernel copies each block's brick-leavers into the block's outbox
+  and marks them emitted (``ops/fused_push3d``, residency=True);
+* :func:`plan_exchange` routes the outbox rows to their destination bricks
+  with one stable sort over the outbox rows only, and allocates them to the
+  destination bricks' blocks by free space;
+* :func:`merge_p` drops the emitted lanes, compacts each block's keepers in
+  lane order and appends the routed newcomers, so the species arrays are
+  complete at every step boundary.  On CUDA tensors it launches
+  ``csrc/merge_p.cu``; on CPU tensors it runs the plain version
+  ``merge_p_ref``.  It never falls back from one to the other.
+
+When the exchange would overflow (a brick's inflow exceeds its free slots,
+or more rows are routed than the compact bound), when a leaver exceeded the
+outbox cap, or when a kept lane sits outside its home brick, the step
+rebuckets with the full brick sort instead of merging.  Invariant after
+every step: every live lane is interior to its home brick.
+
+The JAX package's merge works around the TPU (``_prefix_excl`` triangular
+matmuls, ``_bdot`` split-bf16 one-hot dots, the ``BAND`` fast paths, the
+two prefetch-indexed 128-lane DMA windows of compact rows); the kernel here
+is a block scan plus direct row moves, and none of that has a counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..grid import Grid
+from ..state import SpeciesState
+from . import _build
+from .fused_push import _check, _round_up, packed_src_sort
+from .fused_push3d import BLOCK, LANE_FIELDS, OUT_CAP, Outbox, brick_of, \
+    nbricks
+
+INB = 128         # per-block inbox cap (newcomers a block takes per step)
+KERNEL = "merge_p"
+
+# Kernel launches made by merge_p since the count was last reset.
+launches = 0
+
+
+def static_layout(capacities, block: int = BLOCK):
+    """Static block layout of the concatenated species: (nblocks_total,
+    spid (nblocks,) int32 numpy, usable (nblocks,) bool numpy).  ``usable``
+    is False for a block not entirely inside its species' capacity (the
+    partial tail block): newcomers go only to whole blocks."""
+    spids, usable = [], []
+    for s, N in enumerate(capacities):
+        nb = _round_up(N, block) // block
+        spids += [s] * nb
+        usable += [(j + 1) * block <= N for j in range(nb)]
+    return (len(spids), np.asarray(spids, np.int32),
+            np.asarray(usable, bool))
+
+
+def slack_blocks(g: Grid, n0_list, capacities, block: int = BLOCK,
+                 want: int = 4) -> int:
+    """Largest per-brick slack (<= want) such that the quantized layout with
+    slack fits every species' capacity under the no-growth live bound n0;
+    0 when even a slack of 1 does not fit (residency stays off)."""
+    nb = nbricks(g)
+    for slack in range(want, 0, -1):
+        if all(_round_up(max(n0, 1), block) + nb * (1 + slack) * block <= N
+               for n0, N in zip(n0_list, capacities)):
+            return slack
+    return 0
+
+
+def extents(g: Grid, n0_list, slack: int, block: int = BLOCK):
+    """Per-species residency extents: the slack-padded quantized layout
+    fits in the first E slots, so the whole residency path runs on [0, E)
+    slices and the dead capacity tail never moves.  Multiples of block."""
+    nb = nbricks(g)
+    return [_round_up(max(n0, 1), block) + nb * (1 + slack) * block
+            for n0 in n0_list]
+
+
+def slice_species(sp: SpeciesState, E: int) -> SpeciesState:
+    """View of the first E slots (residency keeps every live lane there)."""
+    return sp.replace(**{n: getattr(sp, n)[:E] for n in LANE_FIELDS})
+
+
+def join_species(spE: SpeciesState, sp_full: SpeciesState,
+                 E: int) -> SpeciesState:
+    """Reattach the untouched dead capacity tail (new tensors); ``np``
+    comes from spE."""
+    return sp_full.replace(
+        **{n: torch.cat([getattr(spE, n), getattr(sp_full, n)[E:]])
+           for n in LANE_FIELDS}, np=spE.np)
+
+
+def block_counts(sps: Sequence[SpeciesState], emits,
+                 block: int = BLOCK) -> torch.Tensor:
+    """Per-block free slots after the merge drops the emitted lanes:
+    block - (live - emitted), concatenated over species in block order
+    (int32)."""
+    frees = []
+    for sp, emit in zip(sps, emits):
+        N = sp.capacity
+        pad = _round_up(N, block) - N
+        live = torch.nn.functional.pad(sp.live.to(torch.int32), (0, pad))
+        em = torch.nn.functional.pad(emit.to(torch.int32), (0, pad))
+        n_live = live.view(-1, block).sum(1, dtype=torch.int32)
+        n_emit = em.view(-1, block).sum(1, dtype=torch.int32)
+        frees.append(block - (n_live - n_emit))
+    return torch.cat(frees) if len(frees) > 1 else frees[0]
+
+
+def max_routed(nblocks: int, out_cap: int = OUT_CAP) -> int:
+    """Static cap on the rows routed in one step (the compact bound): half
+    the worst case, ~6 % of the lanes crossing bricks per step.  More
+    rebuckets instead."""
+    return max(32768, _round_up(nblocks * out_cap // 2, 1024))
+
+
+_STATIC: dict = {}
+
+
+def _static_tensors(spid, usable, dev):
+    """(spid, usable) of static_layout as int64 / bool tensors on ``dev``,
+    plus the species count, copied to the device once per layout: a copy
+    from host memory every step would wait for the device."""
+    spid = np.asarray(spid, np.int32)
+    usable = np.asarray(usable, bool)
+    key = (spid.tobytes(), usable.tobytes(), str(dev))
+    if key not in _STATIC:
+        _STATIC[key] = (
+            torch.as_tensor(spid, dtype=torch.int64, device=dev),
+            torch.as_tensor(usable, dtype=torch.bool, device=dev),
+            int(spid.max()) + 1 if len(spid) else 1)
+    return _STATIC[key]
+
+
+def plan_exchange(obx: Outbox, homes_cat: torch.Tensor, spid, usable,
+                  free_j: torch.Tensor, g: Grid, inb: int = INB):
+    """Route outbox rows to destination (species, brick) groups and allocate
+    them greedily to the group's blocks by free space.
+
+    Returns (compact, starts_j, a_j, overflow, stats): ``compact`` is an
+    Outbox of the valid rows in destination-sorted order (at most
+    max_routed rows); block j takes compact rows [starts_j, starts_j + a_j)
+    (int32); ``overflow`` (0-d bool) is True when a group's inflow exceeds
+    its allocatable slots or the routed total exceeds the compact bound --
+    the caller must rebucket instead of merging; ``stats`` is (routed rows,
+    max group shortfall)."""
+    dev = obx.vox.device
+    i64 = torch.int64
+    nb = nbricks(g)
+    nblocks = homes_cat.shape[0]
+    out_cap = obx.vox.shape[0] // nblocks
+    spid_t, usable_t, nsp = _static_tensors(spid, usable, dev)
+    NKEY = nsp * nb
+
+    dest = torch.clamp(brick_of(torch.clamp(obx.vox, min=1), g), 0, nb - 1)
+    spid_r = spid_t.repeat_interleave(out_cap)
+    key_r = torch.where(obx.valid, spid_r * nb + dest.to(i64), NKEY)
+    N_OUT = key_r.shape[0]
+    keys_sorted, sorted_src = packed_src_sort(key_r, N_OUT, NKEY + 1)
+    ar = torch.arange(NKEY + 1, dtype=i64, device=dev)
+    seg = torch.searchsorted(keys_sorted, ar)
+    c_k = seg[1:] - seg[:-1]                                   # (NKEY,)
+
+    key_j = spid_t * nb + homes_cat.to(i64)                    # nondecreasing
+    cap_j = torch.where(usable_t, torch.clamp(free_j.to(i64), 0, inb), 0)
+    csp = torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                     torch.cumsum(cap_j, 0)])
+    j_start = torch.searchsorted(key_j, ar)
+    off = csp[j_start]                                         # (NKEY+1,)
+    capsum_k = off[1:] - off[:-1]                              # (NKEY,)
+    overflow = torch.any(c_k > capsum_k)
+
+    prefix_j = csp[:-1] - off[:-1][key_j]    # cap before j within group
+    ck_j = c_k[key_j]
+    q_j = torch.minimum(ck_j, prefix_j)
+    a_j = torch.clamp(torch.minimum(cap_j, ck_j - q_j), min=0)
+    starts_j = seg[key_j] + q_j
+
+    # the valid rows are the sorted prefix [0, seg[NKEY]): bound it
+    # statically and rebucket when exceeded
+    MAXIN = max_routed(nblocks, out_cap)
+    overflow = overflow | (seg[NKEY] > MAXIN)
+    take = sorted_src[:MAXIN].to(i64)
+    n_take = take.shape[0]
+    compact = Outbox(
+        f=obx.f[:, take].contiguous(), vox=obx.vox[take].contiguous(),
+        valid=torch.arange(n_take, device=dev) < seg[NKEY])
+    stats = torch.stack([seg[NKEY], torch.max(c_k - capsum_k)])
+    return (compact, starts_j.to(torch.int32), a_j.to(torch.int32),
+            overflow, stats)
+
+
+def any_misplaced(sps: Sequence[SpeciesState], emits, homes, g: Grid,
+                  block: int = BLOCK) -> torch.Tensor:
+    """0-d bool: True when any live, non-emitted lane's voxel is outside
+    its block's home brick (a capped leaver): the caller must rebucket to
+    restore the interior-residency invariant."""
+    out = torch.zeros((), dtype=torch.bool, device=sps[0].live.device)
+    for sp, emit, home in zip(sps, emits, homes):
+        N = sp.capacity
+        hl = home.to(torch.int64).repeat_interleave(block)[:N]
+        br = brick_of(torch.clamp(sp.i, min=1), g).to(torch.int64)
+        out = out | torch.any(sp.live & ~emit & (br != hl))
+    return out
+
+
+def merge_p_ref(sps: Sequence[SpeciesState], emits, compact: Outbox,
+                starts_j, a_j, block: int = BLOCK) -> List[SpeciesState]:
+    """Plain PyTorch version of merge_p (new tensors), bit-identical to the
+    JAX package's merge_p in every lane: per block, keepers (live, not
+    emitted) first in lane order, then the block's newcomers, then zeros; a
+    block with no keepers and no newcomers keeps its rows with live 0 and w
+    0 on dead lanes.  Moved floats get + 0.0 (merge_p's one-hot dots turn a
+    -0.0 into +0.0)."""
+    dev = compact.vox.device
+    i64 = torch.int64
+    M = compact.vox.shape[0]
+    lane = torch.arange(block, dtype=i64, device=dev)[None, :]
+    # compact columns in order dx dy dz ux uy uz w, vox, with a zero column
+    # for rows past the compact array
+    cf = torch.cat([compact.f, torch.zeros((7, 1), dtype=torch.float32,
+                                           device=dev)], 1)
+    cv = torch.cat([compact.vox, torch.zeros(1, dtype=torch.int32,
+                                             device=dev)])
+    fnames = ("dx", "dy", "dz", "ux", "uy", "uz", "w")
+    out, b0 = [], 0
+    for sp, em in zip(sps, emits):
+        N = sp.capacity
+        if N % block:
+            raise ValueError(f"merge_p needs block-multiple capacities, "
+                             f"got {N}")
+        nb = N // block
+        live = sp.live.view(nb, block)
+        keep = live & ~em.view(nb, block)
+        ki = keep.to(i64)
+        pos = torch.cumsum(ki, 1) - ki
+        nk = ki.sum(1, keepdim=True)
+        a = a_j[b0:b0 + nb].to(i64)[:, None]
+        s = starts_j[b0:b0 + nb].to(i64)[:, None]
+        ntot = nk + a
+        # source lane of each keeper slot (lanes past nk read lane 0)
+        src = torch.zeros((nb, block + 1), dtype=i64, device=dev)
+        src.scatter_(1, torch.where(keep, pos, block),
+                     lane.expand(nb, block).contiguous())
+        src = src[:, :block]
+        is_keep = lane < nk
+        is_new = (lane >= nk) & (lane < ntot)
+        c = s + (lane - nk)
+        c = torch.where(is_new & (c >= 0) & (c < M), c, M)
+        dead_blk = ntot == 0
+        merged = {}
+        for r, n in enumerate(fnames):
+            x = getattr(sp, n).view(nb, block)
+            moved = torch.where(is_keep, torch.gather(x, 1, src),
+                                torch.where(is_new, cf[r][c], 0.0)) + 0.0
+            if n == "w":
+                x = torch.where(live, x, 0.0)
+            merged[n] = torch.where(dead_blk, x, moved).reshape(N)
+        x = sp.i.view(nb, block)
+        moved = torch.where(is_keep, torch.gather(x, 1, src),
+                            torch.where(is_new, cv[c], 0))
+        merged["i"] = torch.where(dead_blk, x, moved).reshape(N)
+        new_live = (~dead_blk & (lane < ntot)).reshape(N)
+        out.append(sp.replace(**merged, live=new_live,
+                              np=new_live.sum(dtype=torch.int32)))
+        b0 += nb
+    return out
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    fn = lib.merge_p
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.merge_p_error_string.argtypes = [ctypes.c_int]
+        lib.merge_p_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def merge_p(sps: Sequence[SpeciesState], emits, compact: Outbox, starts_j,
+            a_j, block: int = BLOCK) -> List[SpeciesState]:
+    """Drop emitted lanes, compact each block's keepers in lane order and
+    append the block's routed newcomers (block j takes compact rows
+    [starts_j, starts_j + a_j)).  Capacities must be multiples of ``block``
+    (the residency path works on extent slices).  Returns the merged species
+    as new tensors.
+
+    CUDA tensors: one launch of csrc/merge_p.cu per species.  CPU tensors:
+    the plain version.  Any other device raises."""
+    global launches
+    dev = sps[0].dx.device if sps else compact.vox.device
+    if dev.type == "cpu":
+        return merge_p_ref(sps, emits, compact, starts_j, a_j, block)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_p: unsupported device {dev}")
+    if block != BLOCK:
+        raise ValueError(f"the merge kernel works on {BLOCK}-lane blocks")
+    M = compact.vox.shape[0]
+    _check(compact.f, "compact.f", torch.float32, (7, M), dev)
+    _check(compact.vox, "compact.vox", torch.int32, (M,), dev)
+    nblocks = []
+    for k, (sp, em) in enumerate(zip(sps, emits)):
+        N = sp.capacity
+        if N % block:
+            raise ValueError(f"species[{k}] capacity {N} is not a multiple "
+                             f"of {block}")
+        nblocks.append(N // block)
+        for name in ("dx", "dy", "dz", "ux", "uy", "uz", "w"):
+            _check(getattr(sp, name), f"species[{k}].{name}", torch.float32,
+                   (N,), dev)
+        _check(sp.i, f"species[{k}].i", torch.int32, (N,), dev)
+        _check(sp.live, f"species[{k}].live", torch.bool, (N,), dev)
+        _check(em, f"emits[{k}]", torch.bool, (N,), dev)
+    total = sum(nblocks)
+    _check(starts_j, "starts_j", torch.int32, (total,), dev)
+    _check(a_j, "a_j", torch.int32, (total,), dev)
+
+    lib = _kernel_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out, b0 = [], 0
+    for k, (sp, em) in enumerate(zip(sps, emits)):
+        N = sp.capacity
+        o = {n: torch.empty_like(getattr(sp, n)) for n in LANE_FIELDS}
+        if N:
+            rc = lib.merge_p(
+                *(getattr(sp, n).data_ptr() for n in LANE_FIELDS),
+                em.data_ptr(),
+                *(o[n].data_ptr() for n in LANE_FIELDS),
+                compact.f.data_ptr(), compact.vox.data_ptr(), M, M,
+                starts_j[b0:].data_ptr(), a_j[b0:].data_ptr(), N, stream)
+            if rc != 0:
+                msg = lib.merge_p_error_string(rc).decode()
+                raise RuntimeError(f"merge_p launch failed: {msg} ({rc})")
+            launches += 1
+        out.append(sp.replace(**o, np=o["live"].sum(dtype=torch.int32)))
+        b0 += nblocks[k]
+    return out

@@ -53,7 +53,7 @@ class FieldState:
     div_b_err: torch.Tensor
 
     @classmethod
-    def zeros(cls, g: Grid, device="cpu") -> "FieldState":
+    def zeros(cls, g: Grid, device) -> "FieldState":
         return cls(*[torch.zeros(g.shape, dtype=torch.float32, device=device)
                      for _ in FIELD_NAMES])
 
@@ -130,13 +130,14 @@ class SimState:
     """Dynamic simulation state: everything a timestep reads and writes.
 
     ``step`` is a host int: every cadence decision (sort, cleaners) is made
-    on the host from it, so the step never reads the device.  ``diag`` holds
-    named device scalars; its keys are fixed at initialize()."""
+    on the host from it.  ``diag`` holds named device tensors (counters, the
+    3-D home maps) and one host bool, ``_res_valid`` (the residency layout
+    is set up); its keys are fixed at initialize()."""
 
     fields: FieldState
     species: Tuple[SpeciesState, ...]
     step: int = 0
-    diag: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    diag: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)

@@ -1,22 +1,31 @@
 """Where the time of one harris step goes on the card.
 
-    python -m vpic_tpu_torch.utils.step_breakdown [nx nppc]
+    python -m vpic_tpu_torch.utils.step_breakdown [--deck harris2d|harris3d]
+        [nx nppc]
 
-Builds the 2-D harris deck (default 64^2 x 64 ppc) on the GPU and prints
-three things, each as one JSON line:
+Builds the harris deck on the GPU -- 2-D 64^2 x 64 ppc by default, or with
+``--deck harris3d`` the 3-D residency deck at bench.py's widths (32^3 x 128
+ppc, L = 16) -- and prints three things, each as one JSON line:
 
-* ``layers``: each layer of the step (sort, interpolator load, push,
-  accumulator unload, field advance, cleaners, energies) run on its own
-  with CUDA events around it, mean ms over repeats; the sort and cleaners
-  run every step here though the step runs them only on their cadence;
-* ``step``: ms per step of the real step (host clock around
-  synchronize), and the device's busy share of that time from
-  torch.profiler (kernel time summed / wall time);
+* ``layers_ms``: each layer of the step run on its own with CUDA events
+  around it, mean ms over repeats.  2-D: sort, interpolator load, push,
+  accumulator unload, field advance, cleaners, energies; the sort and
+  cleaners run every time here though the step runs them only on their
+  cadence.  3-D adds the residency layers: the rebucket (the slack-padded
+  brick sort, run by the step only when the exchange cannot merge), the
+  exchange plan (block_counts + plan_exchange + any_misplaced), the merge
+  and the join of the dead capacity tail; each 3-D push and merge runs on
+  a fresh copy of the same lanes;
+* ``step``: ms per step of the real step (host clock around synchronize),
+  the device's busy share of that time from torch.profiler (kernel time
+  summed / wall time), kernel launches per step and, in 3-D, rebuckets,
+  merges and host syncs over the window;
 * ``kernels``: the kernels that took the most device time in that window.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -26,49 +35,48 @@ import torch
 from ..models import harris
 from ..ops import fields as F
 from ..ops import fused_push as FP
+from ..ops import fused_push3d as FP3
 from ..ops import interp as I
 from ..ops import push as P
+from ..ops import residency as RES
 
 REPS = 50
 
 
-def _time(fn, reps=REPS):
-    """Mean ms of fn() between CUDA events, after two warm-up calls."""
-    for _ in range(2):
+def _time(fn, reps=REPS, setup=None):
+    """Mean ms of fn() between CUDA events, after two warm-up calls; with
+    ``setup``, each call is preceded by an untimed setup() and timed on
+    its own."""
+    if setup is None:
+        for _ in range(2):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    total = 0.0
+    for rep in range(reps + 2):
+        setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        torch.cuda.synchronize()
+        if rep >= 2:
+            total += start.elapsed_time(end)
+    return total / reps
 
 
-def main(argv):
-    if not torch.cuda.is_available():
-        print("step_breakdown: needs a CUDA device", file=sys.stderr)
-        return 1
-    nx, nppc = (int(argv[0]), float(argv[1])) if len(argv) >= 2 else (64, 64)
-    p = harris.HarrisParams(nx=nx, ny=nx, nppc=nppc, Lx=nx / 4, Ly=nx / 4)
-    sim = harris.build(p)
-    sim.device = torch.device("cuda")
-    state = sim.initialize()
+def _common_layers(sim, state, species, qms, acc):
     g = sim.grid
     f = state.fields
-    qms = [(st.params.q, st.params.m) for st in sim.species]
-    extents = [len(st.xs) for st in sim.species]
-    species = [FP.bucket_sort_p(sp, g, extent=e)
-               for sp, e in zip(state.species, extents)]
-    fcoef = I.load_interpolator(f, g)
-    acc = torch.zeros((g.nv, 12), device="cuda")
     m = sim._material_coeffs()
-
-    def push():
-        acc.zero_()
-        FP.fused_push_multi(species, fcoef, acc, g, qms)
 
     def unload():
         F.clear_jf(f)
@@ -94,17 +102,121 @@ def main(argv):
             F.clean_div_b(f, g)
         F.synchronize_tang_e_norm_b(f, g)
 
-    layers = {
-        "sort": _time(lambda: [FP.bucket_sort_p(sp, g, extent=e)
-                               for sp, e in zip(species, extents)]),
+    return {
         "load_interpolator": _time(lambda: I.load_interpolator(f, g)),
-        "push": _time(push),
         "unload": _time(unload),
         "fields": _time(advance_fields),
         "cleaners": _time(cleaners),
         "energies": _time(lambda: sim.energies(state)),
     }
-    print(json.dumps({"layers_ms": layers}))
+
+
+def _layers_2d(sim, state):
+    g = sim.grid
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    extents = [st.count for st in sim.species]
+    species = [FP.bucket_sort_p(sp, g, extent=e)
+               for sp, e in zip(state.species, extents)]
+    fcoef = I.load_interpolator(state.fields, g)
+    acc = torch.zeros((g.nv, 12), device="cuda")
+
+    def push():
+        acc.zero_()
+        FP.fused_push_multi(species, fcoef, acc, g, qms)
+
+    layers = {
+        "sort": _time(lambda: [FP.bucket_sort_p(sp, g, extent=e)
+                               for sp, e in zip(species, extents)]),
+        "push": _time(push),
+    }
+    layers.update(_common_layers(sim, state, species, qms, acc))
+    return layers
+
+
+def _layers_3d(sim, state):
+    g = sim.grid
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    n0 = [st.count for st in sim.species]
+    res_on, slack = sim._residency_mode()
+    if not res_on:
+        raise SystemExit("step_breakdown: this 3-D deck has no residency")
+    exts = RES.extents(g, n0, slack)
+    _, spid, usable = RES.static_layout(exts)
+    sliced = [RES.slice_species(sp, E) for sp, E in zip(state.species, exts)]
+
+    def rebucket():
+        return [FP3.brick_sort_p_home(sp, g, extent=n, slack=slack)
+                for sp, n in zip(sliced, n0)]
+
+    out = rebucket()
+    base = [o[0] for o in out]
+    homes = [o[1] for o in out]
+    homes_cat = torch.cat(homes)
+    fcoef = I.load_interpolator(state.fields, g)
+    acc = torch.zeros((g.nv, 12), device="cuda")
+    work = [sp.replace(**{n: getattr(sp, n).clone()
+                          for n in FP3.LANE_FIELDS}) for sp in base]
+
+    def fresh():
+        for w, s in zip(work, base):
+            for n in FP3.LANE_FIELDS:
+                getattr(w, n).copy_(getattr(s, n))
+        acc.zero_()
+
+    def push():
+        return FP3.fused_push3d_multi(work, fcoef, acc, g, qms, homes=homes,
+                                      residency=True)
+
+    fresh()
+    pushed, _, emits, obx, ores, _ = push()
+    pushed = [sp.replace(**{n: getattr(sp, n).clone()
+                            for n in FP3.LANE_FIELDS}) for sp in pushed]
+
+    def exchange():
+        free_j = RES.block_counts(pushed, emits)
+        plan = RES.plan_exchange(obx, homes_cat, spid, usable, free_j, g)
+        RES.any_misplaced(pushed, emits, homes, g)
+        return plan
+
+    compact, starts_j, a_j, _, _ = exchange()
+    merged = RES.merge_p(pushed, emits, compact, starts_j, a_j)
+    layers = {
+        "rebucket": _time(rebucket),
+        "push": _time(push, setup=fresh),
+        "exchange": _time(exchange),
+        "merge": _time(lambda: RES.merge_p(pushed, emits, compact, starts_j,
+                                           a_j)),
+        "join": _time(lambda: [RES.join_species(sE, sF, E) for sE, sF, E in
+                               zip(merged, state.species, exts)]),
+    }
+    layers.update(_common_layers(sim, state, merged, qms, acc))
+    return layers
+
+
+def main(argv):
+    ap = argparse.ArgumentParser(prog="step_breakdown")
+    ap.add_argument("--deck", choices=("harris2d", "harris3d"),
+                    default="harris2d")
+    ap.add_argument("nx", nargs="?", type=int)
+    ap.add_argument("nppc", nargs="?", type=float)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("step_breakdown: needs a CUDA device", file=sys.stderr)
+        return 1
+    three = args.deck == "harris3d"
+    nx = args.nx or (32 if three else 64)
+    nppc = args.nppc or (128.0 if three else 64.0)
+    if three:
+        p = harris.HarrisParams(nx=nx, ny=nx, nz=nx, nppc=nppc, Lx=nx / 2,
+                                Ly=nx / 2, Lz=nx / 2)
+    else:
+        p = harris.HarrisParams(nx=nx, ny=nx, nppc=nppc, Lx=nx / 4,
+                                Ly=nx / 4)
+    sim = harris.build(p)
+    state = sim.initialize()
+    layers = (_layers_3d if three else _layers_2d)(sim, state)
+    print(json.dumps({"deck": args.deck, "nx": nx, "nppc": nppc,
+                      "layers_ms": layers}))
 
     # the real step, then a profiled window of it
     state = sim.initialize()
@@ -119,6 +231,10 @@ def main(argv):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
+    nsp = len(state.species)
+    reb0 = int(state.diag["_res_rebuckets"]) if three else 0
+    RES.launches = 0
+    sim.host_syncs = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -132,12 +248,18 @@ def main(argv):
                if e.device_time_total > 0 and e.device_type.name == "CUDA"]
     busy = sum(k[1] for k in kernels)
     n_kernels = sum(k[2] for k in kernels)
-    print(json.dumps({"step": {
+    step_info = {
         "ms_per_step": wall_ms, "ms_per_step_profiled": prof_ms,
         "device_busy_ms_per_step": busy,
         "device_busy_share": busy / prof_ms if prof_ms else None,
         "kernels_per_step": n_kernels,
-        "particles": sum(int(sp.np) for sp in state.species)}}))
+        "particles": sum(int(sp.np) for sp in state.species)}
+    if three:
+        step_info.update(
+            window_steps=n,
+            rebuckets=int(state.diag["_res_rebuckets"]) - reb0,
+            merges=RES.launches // nsp, host_syncs=sim.host_syncs)
+    print(json.dumps({"step": step_info}))
     kernels.sort(key=lambda k: -k[1])
     print(json.dumps({"kernels": [
         {"name": k[0][:80], "ms_per_step": k[1], "calls_per_step": k[2]}
