@@ -450,9 +450,12 @@ def main():
     mk = RES.merge_p(sk, em_k, compact, starts_j, a_j)
     mr = RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
     torch.cuda.synchronize()
+    merge_err = 0.0
     for k, (a, b) in enumerate(zip(mk, mr)):
         for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w"):
             x, y = getattr(a, n), getattr(b, n)
+            merge_err = max(merge_err, float(
+                (x.double() - y.double()).abs().max()))
             if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
                 fail(f"merge species {k}.{n}: kernel differs from plain")
         if not torch.equal(a.live, b.live) or int(a.np) != int(b.np):
@@ -480,7 +483,7 @@ def main():
     bms, bby = bound_ms(nbytes, 0)
     results[RES.KERNEL] = dict(
         name=RES.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/merge_p.cu",
-        replaces="vpic_tpu/ops/residency.py:232", max_abs_err=0.0,
+        replaces="vpic_tpu/ops/residency.py:232", max_abs_err=merge_err,
         ms=merge_ms, plain_ms=merge_plain, bound_ms=bms, bound_by=bby,
         library_ms=None)
     del ker, ref, sk, sr, mk, mr, compact, species, fcoef

@@ -51,8 +51,9 @@ def _beam_deck(device):
     sim.define_field_array(damp=0.0)
     el = sim.define_species("e", -1.0, 1.0, 24000, -1, 4, 1)
     rng = np.random.default_rng(0)
-    sim.inject_particles(el, 7.9 / 16, rng.uniform(0.01, 0.99, 1024),
-                         rng.uniform(0.01, 0.99, 1024), 50.0, 0.0, 0.0, 1.0)
+    for _ in range(1024):
+        sim.inject_particle(el, 7.9 / 16, rng.uniform(0.01, 0.99),
+                            rng.uniform(0.01, 0.99), 50.0, 0.0, 0.0, 1.0)
     return sim
 
 
@@ -247,16 +248,17 @@ def test_wrappers_reject_bad_inputs(cuda):
                     starts_j, a_j)
 
 
-@pytest.mark.parametrize("residency", ["auto", False])
+@pytest.mark.parametrize("residency", [True, False])
 def test_harris3d_on_card_matches_cpu(cuda, residency):
     """10 steps of a 16^3 harris on the card and on the CPU, through the
-    residency step and through the per-step brick sort."""
+    residency step (headroom for its slack blocks) and through the
+    per-step brick sort (none)."""
     p = harris.HarrisParams(nx=16, ny=16, nz=16, nppc=4, Lx=8.0, Ly=8.0,
-                            Lz=8.0, headroom=6.0)
+                            Lz=8.0, headroom=6.0 if residency else 1.5)
     runs = []
     for dev in (cuda, torch.device("cpu")):
         sim = harris.build(p, device=dev)
-        sim.pallas_residency = residency
+        assert sim._residency_mode()[0] == residency
         runs.append((sim, sim.run(num_step=10, verbose=False)))
     (sg, gpu), (sc, cpu) = runs
     for n in ("jfx", "ex", "ey", "cbz"):

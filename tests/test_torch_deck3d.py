@@ -21,7 +21,8 @@ import vpic_tpu_torch.ops.residency as RES
 from vpic_tpu.models import harris as harris_jax
 from vpic_tpu_torch.models import harris
 
-from torch_parity import assert_close_rel, build3d_pair, np_, to_torch
+from torch_parity import (assert_close_rel, build3d_pair, build_pair, np_,
+                          to_torch)
 
 torch.set_num_threads(2)
 
@@ -98,7 +99,7 @@ def _beam_deck(pkg, **kw):
 
 def test_outbox_overflow_rebuckets_and_conserves():
     st = _beam_deck(vt, device="cpu")
-    st.pallas_residency = True
+    assert st._residency_mode()[0]
     s = st.initialize()
     step = st.make_step()
     for _ in range(3):
@@ -169,14 +170,14 @@ def test_step_goes_through_both_kernel_wrappers(monkeypatch):
 
 
 def test_per_step_sort_path_matches_residency():
-    """pallas_residency=False: the brick sort every step and the push
-    without outboxes; the same particles as the residency path."""
+    """Capacity without room for a slack block: the brick sort every step
+    and the push without outboxes; the same particles as the residency
+    path."""
     outs = []
-    for knob in (False, "auto"):
-        _, st = build3d_pair()
-        st.pallas_residency = knob
+    for capacity in (6144, 24000):
+        _, st = build3d_pair(capacity=capacity)
         s = st.initialize()
-        assert ("_res_valid" in s.diag) == (knob == "auto")
+        assert ("_res_valid" in s.diag) == (capacity == 24000)
         step = st.make_step()
         for _ in range(4):
             s = step(s)
@@ -190,18 +191,14 @@ def test_per_step_sort_path_matches_residency():
 
 
 def test_residency_knob_and_refused_decks():
-    _, st = build3d_pair()
-    assert st._residency_mode()[0]
-    st.pallas_residency = False
+    """Residency is chosen as vpic_tpu's pallas_residency="auto" chooses
+    it, from the capacity headroom; 2-D decks never take it."""
+    for capacity in (24000, 6144):
+        sj, st = build3d_pair(capacity=capacity)
+        assert st._residency_mode() == sj._residency_mode()
     assert st._residency_mode() == (False, 0)
-    # no headroom for a slack block: auto turns residency off, True raises
-    _, tight = build3d_pair(n_particles=5000)
-    tight.species[0].params = tight.species[0].params.__class__(
-        **{**tight.species[0].params.__dict__, "capacity": 6144})
-    assert tight._residency_mode() == (False, 0)
-    tight.pallas_residency = True
-    with pytest.raises(ValueError):
-        tight._residency_mode()
+    sj, st = build_pair()
+    assert st._residency_mode() == sj._residency_mode() == (False, 0)
     # 3-D grids the brick path does not take raise, naming what is missing
     sim = vt.Simulation(device="cpu")
     sim.define_units(1.0, 1.0)

@@ -46,8 +46,6 @@ PACK_DECKS = {"2d": {}, "3d": dict(nx=16, ny=16, nz=16, nppc=2, Lx=8.0,
 
 @pytest.mark.parametrize("deck", sorted(PACK_DECKS))
 def test_host_packs_bit_equal(deck):
-    """The port stages harris's particles with one vectorized
-    inject_particles per species; vpic_tpu injects them pair by pair."""
     sj, st = build_pair(**PACK_DECKS[deck])
     spj, urbj, _ = sj._pack_species()
     spt, urbt = st._pack_species()
@@ -130,10 +128,12 @@ def test_to_torch_helper_matches_initialize(pair):
     assert_close_rel(moved.fields.cbz, s_t.fields.cbz, 1e-5, 5e-7)
 
 
-def test_inject_particles_matches_one_at_a_time():
-    """Array injection stages exactly the rows of the scalar loop: the same
-    double-precision conversion, the x1 edge folded into the last cell, and
-    out-of-box particles skipped, after earlier single injections."""
+def test_inject_particle_stages_vpic_tpu_rows():
+    """inject_particle stages vpic_tpu's rows (its age column aside): the
+    double-precision conversion, x0 in the first cell and x1 folded into
+    the last, and out-of-box particles skipped; the packs agree bit for
+    bit."""
+    import vpic_tpu as vj
     import vpic_tpu_torch as vt
     rng = np.random.default_rng(1)
     n = 500
@@ -143,20 +143,20 @@ def test_inject_particles_matches_one_at_a_time():
     u = rng.normal(size=(3, n))
     w = rng.uniform(0.5, 1.5, n)
     sims = []
-    for vec in (False, True):
-        sim = vt.Simulation(device="cpu")
+    for pkg, kw in ((vj, {}), (vt, {"device": "cpu"})):
+        sim = pkg.Simulation(**kw)
         sim.define_periodic_grid((0, 0, 0), (2.0, 3.0, 1.0), (8, 6, 4))
         sp = sim.define_species("e", -1.0, 1.0, 2 * n)
-        sim.inject_particle(sp, 0.5, 0.5, 0.5, 0.1, 0.2, 0.3, 1.0)
-        if vec:
-            sim.inject_particles(sp, x, y, z, *u, w)
-        else:
-            for k in range(n):
-                sim.inject_particle(sp, x[k], y[k], z[k], *u[:, k], w[k])
+        for k in range(n):
+            sim.inject_particle(sp, x[k], y[k], z[k], *u[:, k], w[k])
         sims.append(sim)
-    a, b = (s_.species[0].rows() for s_ in sims)
-    assert a.shape == b.shape and 1 < len(a) < n + 1
-    assert np.array_equal(a, b)
-    pa, pb = (s_._pack_species()[0][0] for s_ in sims)
+    sj, st = sims
+    rj = np.delete(np.asarray(sj.species[0].xs, np.float64), 10, axis=1)
+    rt = np.asarray(st.species[0].xs, np.float64)
+    assert 1 < len(rt) < n and np.array_equal(rj, rt)
+    assert tuple(rt[0, [0, 3]]) == (-1.0, 1) and \
+        tuple(rt[1, [0, 3]]) == (1.0, 8)
+    pa, pb = sj._pack_species()[0][0], st._pack_species()[0][0]
     for name in SPECIES_NAMES:
-        assert torch.equal(getattr(pa, name), getattr(pb, name)), name
+        x_, y_ = np.asarray(getattr(pa, name)), np_(getattr(pb, name))
+        assert np.array_equal(x_, y_), name

@@ -121,10 +121,11 @@ def check_field_op(fn_jax, fn_torch, grid, rel=1e-6, seed=0):
         assert_close_rel(out_j[n], out_t[n], rel, 0.0, n)
 
 
-def build3d_pair(walls=False, n_particles=5000, seed=0):
+def build3d_pair(walls=False, n_particles=5000, seed=0, capacity=24000):
     """(vpic_tpu Simulation, vpic_tpu_torch Simulation on the CPU) of the
     16^3 deck of tests/test_pallas3d.py: one electron species of
-    ``n_particles`` warm particles in a periodic box with a standing wave.
+    ``n_particles`` warm particles (``capacity`` slots) in a periodic box
+    with a standing wave.
     ``walls`` adds PEC field faces and reflecting particle faces at +-x
     (the port has no absorbing particle faces yet, so the z faces stay
     periodic)."""
@@ -145,7 +146,7 @@ def build3d_pair(walls=False, n_particles=5000, seed=0):
                                            pkg.REFLECT_PARTICLES)
         sim.define_material("vacuum", 1.0)
         sim.define_field_array(damp=0.0)
-        el = sim.define_species("e", -1.0, 1.0, 24000, -1, 4, 1)
+        el = sim.define_species("e", -1.0, 1.0, capacity, -1, 4, 1)
         rng = np.random.default_rng(seed)
         for _ in range(n_particles):
             sim.inject_particle(el, *rng.uniform(0.01, 0.99, 3),

@@ -176,10 +176,11 @@ def build(p: HarrisParams = HarrisParams(), device="cuda") -> Simulation:
 
     iux, iuy, iuz = boosted(uthi, udri, gdri)
     eux, euy, euz = boosted(uthe, udre, gdre)
-    # the same staged rows as injecting pair k = 0, 1, ... one at a time
-    # (tests/test_torch_state.py holds the packs bit-equal to vpic_tpu's)
-    sim.inject_particles(ion, xs, ys, zs, iux, iuy, iuz, wi)
-    sim.inject_particles(electron, xs, ys, zs, eux, euy, euz, we)
+    for k in range(n_inject):
+        sim.inject_particle(ion, xs[k], ys[k], zs[k],
+                            iux[k], iuy[k], iuz[k], wi)
+        sim.inject_particle(electron, xs[k], ys[k], zs[k],
+                            eux[k], euy[k], euz[k], we)
 
     sim.meta = dict(b0=b0, n0=n0, wci=wci, wce=wce, wpe=wpe, dt=dt,
                     kTi=kTi, kTe=kTe, Ne=Ne, Ni=Ni)
