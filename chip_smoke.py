@@ -6,9 +6,10 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. build: the three kernels (csrc/fused_push2d.cu, fused_push3d.cu,
-     merge_p.cu) built for sm_90a, one nvcc each, started together; prints
-     ptxas' registers / spills / shared memory;
+  2. build: the six kernels (csrc/fused_push2d.cu, fused_push3d.cu,
+     merge_p.cu, compact_block.cu, mailbox.cu, field_beb.cu) built for
+     sm_90a, one nvcc each, started together; prints ptxas' registers /
+     spills / shared memory;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
      on the 64^2 x 64 ppc harris state at the main path's shapes, and times
      both with CUDA events;
@@ -28,7 +29,17 @@ Phases, each of which must pass (any failure exits non-zero):
   8. 3-D run: the full-width 3-D harris deck through the residency step for
      100 steps (bench.py --deck harris3d's widths and steps); both 3-D
      kernels must have been launched, no streak left unfinished, drift
-     below 1e-3.
+     below 1e-3;
+  9. residency prototypes: the entry points vpic_tpu_torch.scripts.
+     residency_proto and residency_grid_bench (their main()), which hold the
+     compaction kernel against numpy and its plain version bit for bit with
+     equal counts at (9, 4096), at (16, 64 x 4096) and on the all-true mask,
+     and the mailbox kernel at 96 blocks of (16, 128), and time kernel,
+     plain version and library call;
+ 10. field trio: the entry point vpic_tpu_torch.scripts.field_fuse_proto
+     (its main()) at the 64^2 x 4 ppc harris fields and at the 32^3 harris
+     fields (4 ppc), fused kernel against the plain trio to 1e-6 abs on each
+     output, exactly one launch per trio, both timed.
 The kernel launch counts of each run are reset just before it and read just
 after it.  Then it prints the kernels' JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -36,7 +47,6 @@ limit, and as the last line {"ok": true, "device": {...}}.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -51,14 +61,6 @@ FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def gpu_name_and_power():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def clone_species(species):
@@ -163,21 +165,6 @@ def time_push(torch, fn, g, species, fcoef, qms, **kw):
     return total / REPS
 
 
-def time_call(torch, fn):
-    """Mean ms of fn() between CUDA events, after two warm-up calls."""
-    total = 0.0
-    for rep in range(REPS + 2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        if rep >= 2:
-            total += start.elapsed_time(end)
-    return total / REPS
-
-
 def push_bytes(species, g, slots, extra=0):
     """Bytes a push must move: per live lane 8 words read and 7 written,
     a live flag per slot, the coefficient table, the accumulator in and
@@ -216,21 +203,29 @@ def small_reference(torch, harris, p, what):
           "(fields 5e-7 + 1e-5 max|a|, energies 1e-6 sum, live counts)")
 
 
+def reset_counts(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters):
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
 def run_steps(torch, sim, state, n_steps, counters):
     """n_steps of the deck's step with every kernel count set to 0 just
     before and read just after; returns (state, seconds, launches)."""
     step = sim.make_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
+    reset_counts(counters)
     sim.host_syncs = 0
     t0 = time.perf_counter()
     for _ in range(n_steps):
         state = step(state)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    return state, elapsed, {k: m.launches for k, m in counters.items()}
+    return state, elapsed, read_counts(counters)
 
 
 def check_run(torch, sim, state, e0, what):
@@ -262,17 +257,27 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vpic_tpu_torch.models import harris
     from vpic_tpu_torch.ops import _build
+    from vpic_tpu_torch.ops import compact as C
+    from vpic_tpu_torch.ops import field_fuse as FF
     from vpic_tpu_torch.ops import fused_push as FP
     from vpic_tpu_torch.ops import fused_push3d as FP3
     from vpic_tpu_torch.ops import interp as I
     from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.scripts import card as card_and_power
+    from vpic_tpu_torch.scripts import cuda_ms
+    from vpic_tpu_torch.scripts import field_fuse_proto as RF
+    from vpic_tpu_torch.scripts import residency_grid_bench as RG
+    from vpic_tpu_torch.scripts import residency_proto as RP
 
-    card = gpu_name_and_power()
+    card = card_and_power()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = {FP.KERNEL: FP, FP3.KERNEL: FP3, RES.KERNEL: RES}
+    counters = {FP.KERNEL: (FP, "launches"), FP3.KERNEL: (FP3, "launches"),
+                RES.KERNEL: (RES, "launches"), C.KERNEL: (C, "launches"),
+                C.MAILBOX_KERNEL: (C, "mailbox_launches"),
+                FF.KERNEL: (FF, "launches")}
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
@@ -463,17 +468,13 @@ def main():
     routed = int(stats[0])
     print(f"compare: merge kernel == plain version in every lane, bit for "
           f"bit ({routed} rows routed, {int(a_j.sum())} placed)")
-    merge_ms = time_call(torch, lambda: RES.merge_p(sk, em_k, compact,
-                                                    starts_j, a_j))
-    merge_plain = time_call(torch, lambda: RES.merge_p_ref(
-        sk, em_k, compact, starts_j, a_j))
-    merge_ms2 = time_call(torch, lambda: RES.merge_p(sk, em_k, compact,
-                                                     starts_j, a_j))
-    merge_plain2 = time_call(torch, lambda: RES.merge_p_ref(
-        sk, em_k, compact, starts_j, a_j))
+    merge = lambda: RES.merge_p(sk, em_k, compact, starts_j, a_j)
+    merge_ref = lambda: RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
+    merge_ms, merge_plain, merge_ms2, merge_plain2 = (
+        cuda_ms(fn, REPS) for fn in (merge, merge_ref, merge, merge_ref))
     print(f"timing ({card}): merge kernel {merge_ms:.4f} / {merge_ms2:.4f} "
           f"ms, plain {merge_plain:.4f} / {merge_plain2:.4f} ms per merge "
-          f"of both species (CUDA events, mean of {REPS}, "
+          f"of both species (CUDA events, best of 3 windows of {REPS}, "
           "kernel-plain-kernel-plain)")
     # bytes: live + emit per slot, keepers' 8 words read, newcomers' 8
     # words read, starts and counts, every slot's 8 words + live written
@@ -520,6 +521,84 @@ def main():
         fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps")
     results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
+    del sim, state
+
+    # --- phase 9: the residency prototypes' entry points ---
+    reset_counts(counters)
+    proto = RP.main([])
+    grid = RG.main([])
+    launches = read_counts(counters)
+    print(f"run prototypes: launches {launches}")
+    if launches[C.KERNEL] == 0 or launches[C.MAILBOX_KERNEL] == 0:
+        fail("the compaction or the mailbox kernel was not launched")
+    checks = [proto["compaction"], grid["copy"], grid["compact"],
+              proto["mailbox"]]
+    if not all(c["bit_exact"] and c["max_abs_err"] == 0.0 for c in checks):
+        fail("a prototype kernel differs from its plain version")
+    for what, c in (("compaction (9, 4096)", proto["compaction"]),
+                    ("copy (16, 64 x 4096)", grid["copy"]),
+                    ("compaction (16, 64 x 4096)", grid["compact"]),
+                    ("mailbox 96 x (16, 128)", proto["mailbox"])):
+        print(f"timing ({card}): {what}: kernel {c['ms']:.5f} ms (device "
+              f"{c['device_ms']:.5f}), plain {c['plain_ms']:.5f}, library "
+              f"{c['library_ms']:.5f} ms per call; == plain and numpy, bit "
+              "for bit (CUDA events, best of 3 windows; device time from "
+              "torch.profiler)")
+    c = grid["compact"]
+    R, Pn = c["shape"]
+    bms, bby = bound_ms(2 * R * Pn * 4 + Pn * 4, 0)
+    results[C.KERNEL] = dict(
+        name=C.KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/compact_block.cu",
+        replaces="scripts/residency_proto.py:42, "
+                 "scripts/residency_grid_bench.py:14, "
+                 "scripts/residency_grid_bench2.py:12",
+        launches=launches[C.KERNEL],
+        max_abs_err=max(x["max_abs_err"] for x in checks[:3]), ms=c["ms"],
+        plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
+        library_ms=c["library_ms"])
+    c = proto["mailbox"]
+    R, M = c["shape"]
+    bms, bby = bound_ms(2 * R * M * c["blocks"] * 4 + 4 * c["blocks"], 0)
+    results[C.MAILBOX_KERNEL] = dict(
+        name=C.MAILBOX_KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/mailbox.cu",
+        replaces="scripts/residency_proto.py:110",
+        launches=launches[C.MAILBOX_KERNEL], max_abs_err=c["max_abs_err"],
+        ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
+        library_ms=c["library_ms"])
+
+    # --- phase 10: the fused field trio's entry point ---
+    reset_counts(counters)
+    trio = [RF.main([]), RF.main(["--nx", "32", "--ny", "32", "--nz", "32"])]
+    launches = read_counts(counters)
+    calls = sum(r["kernel_calls"] for r in trio)
+    print(f"run field trio: launches {launches}, {calls} fused trios")
+    if launches[FF.KERNEL] != calls or calls == 0:
+        fail(f"{launches[FF.KERNEL]} field_beb launches for {calls} trios")
+    for r in trio:
+        if not r["max_abs_err"] <= 1e-6:
+            fail(f"field trio {r['shape']}: max abs err {r['max_abs_err']}")
+        print(f"timing ({card}): field trio {r['shape']}: kernel "
+              f"{r['ms'][0]:.5f} / {r['ms'][1]:.5f} ms (device "
+              f"{r['device_ms']:.5f}), plain {r['plain_ms'][0]:.5f} / "
+              f"{r['plain_ms'][1]:.5f} ms (device {r['plain_device_ms']:.5f})"
+              f" per trio; launches per trio {r['launches_per_trio']} vs "
+              f"plain {r['plain_launches_per_trio']}; max abs err "
+              f"{r['max_abs_err']:.3e} (CUDA events, best of 3 windows of "
+              "100, kernel-plain-kernel-plain)")
+    r = trio[0]
+    nvox = r["shape"][0] * r["shape"][1] * r["shape"][2]
+    # 12 arrays read and 9 written; 81 float operations a voxel (3 x 6 in
+    # each half advance_b, 3 x 15 in advance_e)
+    bms, bby = bound_ms((12 + 9) * 4 * nvox, 81 * nvox)
+    results[FF.KERNEL] = dict(
+        name=FF.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/field_beb.cu",
+        replaces="scripts/field_fuse_proto.py:41",
+        launches=launches[FF.KERNEL],
+        max_abs_err=max(x["max_abs_err"] for x in trio), ms=r["ms"][0],
+        plain_ms=r["plain_ms"][0], bound_ms=bms, bound_by=bby,
+        library_ms=None)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

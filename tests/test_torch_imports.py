@@ -26,6 +26,7 @@ def _imported_roots(path: Path):
 def test_package_files_found():
     assert "vpic_tpu_torch/__init__.py" in FILES
     assert "vpic_tpu_torch/ops/fused_push.py" in FILES
+    assert "vpic_tpu_torch/scripts/field_fuse_proto.py" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES + ["chip_smoke.py"])
@@ -57,6 +58,10 @@ def test_kernel_hash_covers_included_headers(tmp_path, monkeypatch):
         "fused_push3d.cu", "push_lane.cuh", "block_scan.cuh"}
     assert {p.name for p in _build.sources("fused_push2d")} == {
         "fused_push2d.cu", "push_lane.cuh"}
+    assert {p.name for p in _build.sources("compact_block")} == {
+        "compact_block.cu", "block_scan.cuh"}
+    assert {p.name for p in _build.sources("mailbox")} == {"mailbox.cu"}
+    assert {p.name for p in _build.sources("field_beb")} == {"field_beb.cu"}
 
 
 def test_nvcc_line_has_the_include_dir(monkeypatch, tmp_path):

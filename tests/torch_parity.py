@@ -69,6 +69,15 @@ GRIDS = {
     "periodic3d": (4, 5, 3, (GJ.PERIODIC,) * 6),
 }
 
+# Walled grids of every face rule the fused field trio covers (pec,
+# symmetric, pmc, periodic), for ops/field_fuse's tests.
+WALL_GRIDS = {
+    "pec3d": (5, 4, 3, (GJ.PEC, GJ.PERIODIC, GJ.PERIODIC,
+                        GJ.PEC, GJ.PERIODIC, GJ.PERIODIC)),
+    "walls3d": (4, 3, 5, (GJ.PERIODIC, GJ.SYMMETRIC, GJ.PEC,
+                          GJ.PERIODIC, GJ.PMC, GJ.PEC)),
+}
+
 # a conducting, non-unit material: every coefficient enters the stencils
 MAT = dict(decayx=0.91, decayy=0.93, decayz=0.95, drivex=0.97, drivey=0.96,
            drivez=0.94, rmux=0.8, rmuy=0.85, rmuz=0.9, nonconductive=1.0,
@@ -77,7 +86,7 @@ MAT = dict(decayx=0.91, decayy=0.93, decayz=0.95, drivex=0.97, drivey=0.96,
 
 def field_pair(name, seed=0):
     """(grid, fields, material) in both packages: the same random fields."""
-    nx, ny, nz, fbc = GRIDS[name]
+    nx, ny, nz, fbc = {**GRIDS, **WALL_GRIDS}[name]
     kw = dict(dt=0.05, cvac=1.0, eps0=1.0)
     gj = GJ.partition_periodic_box(0, 0, 0, 1.0, 0.8, 0.6, nx, ny, nz, **kw)
     gt = GT.partition_periodic_box(0, 0, 0, 1.0, 0.8, 0.6, nx, ny, nz, **kw)

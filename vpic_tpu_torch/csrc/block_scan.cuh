@@ -2,7 +2,7 @@
 // thread order, built from warp ballots and __popc.
 //
 // The residency kernels (fused_push3d.cu's outbox copy, merge_p.cu's keeper
-// compaction) place flagged lanes in LANE ORDER: plan_exchange's stable sort,
+// compaction, compact_block.cu) place flagged lanes in LANE ORDER: plan_exchange's stable sort,
 // and so the whole lane layout, depends on that order, which an atomic
 // counter would not keep.
 
@@ -17,7 +17,8 @@ constexpr int WARPS = BLOCK / 32;
 
 // Returns the number of threads below this one whose flag is set, and the
 // block's total in *total.  Every thread of the block must call it (it holds
-// two __syncthreads), and a kernel calls it once.
+// two __syncthreads); a kernel that calls it again first passes a
+// __syncthreads(), since the calls share their shared words.
 __device__ __forceinline__ int block_excl_count(bool flag, int* total) {
   __shared__ int woff[WARPS + 1];
   const int lane = threadIdx.x & 31;
