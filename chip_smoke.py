@@ -9,27 +9,37 @@ Phases, each of which must pass (any failure exits non-zero):
   2. build: the six kernels (csrc/fused_push2d.cu, fused_push3d.cu,
      merge_p.cu, compact_block.cu, mailbox.cu, field_beb.cu) built for
      sm_90a, one nvcc each, started together; prints ptxas' registers /
-     spills / shared memory;
+     spills / shared memory, and the push kernels' CUDA blocks per SM;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
-     on the 64^2 x 64 ppc harris state at the main path's shapes, and times
-     both with CUDA events;
+     on the 64^2 x 64 ppc harris state at the main path's shapes, after the
+     bucket sort; prints its deposit rounds that took the global path and
+     their share of all; times both with CUDA events, and the kernel's
+     device time per push of both species with torch.profiler;
   4. 2-D reference: a small 2-D harris deck run 10 steps on the card and on
      the CPU (where the plain versions run) must agree;
   5. 2-D run: the full-width 2-D harris deck (64^2 cells x 64 ppc, 2 species
      of 131,072 particles) through Simulation's step for 200 steps; the push
-     kernel must have been launched, no streak may be left unfinished and
-     the energy drift must stay below 1e-3 (bench.py's guard);
+     kernel (one launch a step for both species) must have been launched at
+     least once a step, no streak may be left unfinished and the energy
+     drift must stay below 1e-3 (bench.py's guard); prints the run's share
+     of global-path deposit rounds; then 7 more steps, and the kernel
+     against its plain version again on the last push before the next
+     sort (the most global-path rounds);
   6. 3-D kernels: at the full-width 3-D harris state (32^3 cells x 128 ppc,
      2 species of 2,097,152 particles) after its first rebucket, the 3-D
-     push kernel with its residency outbox against its plain version, then
-     the merge kernel against its plain version on that push's exchange
-     plan (bit for bit); both timed with CUDA events;
+     push kernel with its residency outbox against its plain version (with
+     its global-path deposit rounds, and its device time as in phase 3),
+     then the merge kernel against its plain version on that push's
+     exchange plan (bit for bit); both timed with CUDA events;
   7. 3-D reference: a 16^3 harris deck run 10 steps on the card and on the
      CPU must agree;
   8. 3-D run: the full-width 3-D harris deck through the residency step for
      100 steps (bench.py --deck harris3d's widths and steps); both 3-D
-     kernels must have been launched, no streak left unfinished, drift
-     below 1e-3;
+     kernels must have been launched (the push once a step for both
+     species, the merge once a step per species), no streak left
+     unfinished, drift below 1e-3; prints the run's global-path share;
+     then the kernel against its plain version again on the residency
+     lanes and home maps the run left;
   9. residency prototypes: the entry points vpic_tpu_torch.scripts.
      residency_proto and residency_grid_bench (their main()), which hold the
      compaction kernel against numpy and its plain version bit for bit with
@@ -54,20 +64,12 @@ import numpy as np
 
 N_STEPS = 200
 N_STEPS_3D = 100
-REPS = 20
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def clone_species(species):
-    return [sp.replace(**{n: getattr(sp, n).clone() for n in
-                          ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w",
-                           "live", "np")})
-            for sp in species]
 
 
 def bound_ms(bytes_moved, flops):
@@ -123,18 +125,28 @@ def compare_acc(acc_k, acc_r):
     return e_acc
 
 
-def compare_push(torch, FP, g, species, fcoef, qms):
+def global_share(mod, what):
+    """Prints and returns the global-path deposit rounds counted by the
+    push module ``mod`` since its count was reset, and their share."""
+    glob, every = mod.deposits.tolist()
+    share = glob / every if every else 0.0
+    print(f"  deposits ({what}): {glob} of {every} rounds took the global "
+          f"path ({100 * share:.4f} %)")
+    return glob, share
+
+
+def compare_push(torch, PT, FP, g, species, fcoef, qms, what):
     """2-D kernel vs plain version on the same inputs; returns the max abs
     error over the compared lane state and accumulator."""
-    sk, acc_k, unf_k = FP.fused_push_multi(
-        clone_species(species), fcoef,
-        torch.zeros((g.nv, 12), dtype=torch.float32, device=fcoef.device),
-        g, qms)
-    sr, acc_r, unf_r = FP.fused_push_multi_ref(
-        clone_species(species), fcoef,
-        torch.zeros((g.nv, 12), dtype=torch.float32, device=fcoef.device),
-        g, qms)
+    print(f"compare: 2-D kernel vs plain, {what}")
+    zeros = lambda: torch.zeros((g.nv, 12), device=fcoef.device)
+    FP.deposits = None
+    sk, acc_k, unf_k = FP.fused_push_multi(PT.clone_species(species), fcoef,
+                                           zeros(), g, qms)
+    sr, acc_r, unf_r = FP.fused_push_multi_ref(PT.clone_species(species),
+                                               fcoef, zeros(), g, qms)
     torch.cuda.synchronize()
+    global_share(FP, what)
     if int(unf_k) != int(unf_r):
         fail(f"unfinished streaks: kernel {int(unf_k)} plain {int(unf_r)}")
     err = 0.0
@@ -143,26 +155,54 @@ def compare_push(torch, FP, g, species, fcoef, qms):
     return max(err, compare_acc(acc_k, acc_r))
 
 
-def time_push(torch, fn, g, species, fcoef, qms, **kw):
-    """Mean ms of one push of every species, CUDA events around each call,
-    each on a fresh copy of the same input lanes."""
-    acc = torch.zeros((g.nv, 12), dtype=torch.float32, device=fcoef.device)
-    work = clone_species(species)
-    total = 0.0
-    for rep in range(REPS + 2):
-        for w, s in zip(work, species):
-            for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz"):
-                getattr(w, n).copy_(getattr(s, n))
-        acc.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(work, fcoef, acc, g, qms, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        if rep >= 2:                    # two warm-up calls
-            total += start.elapsed_time(end)
-    return total / REPS
+def compare_push3d(torch, PT, FP3, g, species, homes, fcoef, qms, what):
+    """3-D kernel with its residency outbox vs plain version on the same
+    inputs; returns (max abs error over the compared lane state, outbox
+    rows and accumulator, the kernel's outputs)."""
+    print(f"compare: 3-D kernel vs plain, {what} (residency outbox)")
+    zeros = lambda: torch.zeros((g.nv, 12), device=fcoef.device)
+    kw = dict(homes=homes, residency=True)
+    FP3.deposits = None
+    ker = FP3.fused_push3d_multi(PT.clone_species(species), fcoef, zeros(),
+                                 g, qms, **kw)
+    ref = FP3.fused_push3d_multi_ref(PT.clone_species(species), fcoef,
+                                     zeros(), g, qms, **kw)
+    torch.cuda.synchronize()
+    global_share(FP3, what)
+    (sk, acc_k, em_k, obx_k, ores_k, unf_k) = ker
+    (sr, acc_r, em_r, obx_r, ores_r, unf_r) = ref
+    if int(unf_k) != int(unf_r) or int(ores_k) != int(ores_r):
+        fail(f"3-D: unfinished {int(unf_k)}/{int(unf_r)}, ores "
+             f"{int(ores_k)}/{int(ores_r)} (kernel/plain)")
+    err = 0.0
+    blk0 = 0
+    n_emit = 0
+    for k, (a, b) in enumerate(zip(sk, sr)):
+        diff = lane_diff(torch, a, b)
+        err = max(err, compare_lanes(torch, k, a, b, diff))
+        ea, eb = em_k[k].cpu().numpy(), em_r[k].cpu().numpy()
+        if not np.array_equal(ea[~diff], eb[~diff]):
+            fail(f"3-D species {k}: emit marks differ")
+        n_emit += int(ea.sum())
+        # outbox columns of every block whose lanes' voxels all agree
+        nb = a.capacity // FP3.BLOCK
+        ok_blk = ~diff.reshape(nb, FP3.BLOCK).any(1)
+        cols = ((blk0 + np.nonzero(ok_blk)[0])[:, None] * FP3.OUT_CAP
+                + np.arange(FP3.OUT_CAP)[None, :]).reshape(-1)
+        for name in ("valid", "vox"):
+            x = getattr(obx_k, name).cpu().numpy()[cols]
+            y = getattr(obx_r, name).cpu().numpy()[cols]
+            if not np.array_equal(x, y):
+                fail(f"3-D species {k}: outbox {name} differs")
+        e = float(np.abs(obx_k.f.cpu().numpy()[:, cols]
+                         - obx_r.f.cpu().numpy()[:, cols]).max())
+        if e > 3e-5:
+            fail(f"3-D species {k}: outbox rows max abs err {e} > 3e-5")
+        err = max(err, e)
+        blk0 += nb
+    err = max(err, compare_acc(acc_k, acc_r))
+    print(f"  outbox: {n_emit} leavers emitted, {int(ores_k)} past the cap")
+    return err, ker
 
 
 def push_bytes(species, g, slots, extra=0):
@@ -268,6 +308,7 @@ def main():
     from vpic_tpu_torch.scripts import field_fuse_proto as RF
     from vpic_tpu_torch.scripts import residency_grid_bench as RG
     from vpic_tpu_torch.scripts import residency_proto as RP
+    from vpic_tpu_torch.utils import push_timing as PT
 
     card = card_and_power()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
@@ -291,6 +332,12 @@ def main():
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {name}: " + line.strip())
+    per_sm = (FP._kernel_lib().fused_push2d_blocks_per_sm(),
+              FP3._kernel_lib().fused_push3d_blocks_per_sm())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"occupancy: 1024-thread CUDA blocks per SM: fused_push2d "
+          f"{per_sm[0]}, fused_push3d {per_sm[1]} (registers and the "
+          f"deposit tile in shared memory; {sms} SMs)")
     results = {}
 
     # --- phase 3: 2-D kernel against its plain version ---
@@ -306,18 +353,19 @@ def main():
     sorted_sp = [FP.bucket_sort_p(sp, g, extent=e)
                  for sp, e in zip(state.species, extents)]
     fcoef = I.load_interpolator(state.fields, g)
-    print("compare: 2-D kernel vs plain, first push of the run (sorted "
-          "lanes)")
-    max_err = compare_push(torch, FP, g, sorted_sp, fcoef, qms)
-    ms = time_push(torch, FP.fused_push_multi, g, sorted_sp, fcoef, qms)
-    plain_ms = time_push(torch, FP.fused_push_multi_ref, g, sorted_sp,
-                         fcoef, qms)
-    ms2 = time_push(torch, FP.fused_push_multi, g, sorted_sp, fcoef, qms)
-    plain_ms2 = time_push(torch, FP.fused_push_multi_ref, g, sorted_sp,
-                          fcoef, qms)
+    max_err = compare_push(torch, PT, FP, g, sorted_sp, fcoef, qms,
+                           "first push after the sort")
+    ms, plain_ms, ms2, plain_ms2 = (
+        PT.time_push(fn, g, sorted_sp, fcoef, qms)
+        for fn in (FP.fused_push_multi, FP.fused_push_multi_ref) * 2)
+    dev_ms = PT.push_device_ms(FP.fused_push_multi, "fused_push2d_kernel",
+                               g, sorted_sp, fcoef, qms)
     print(f"timing ({card}): 2-D kernel {ms:.4f} / {ms2:.4f} ms, plain "
           f"{plain_ms:.4f} / {plain_ms2:.4f} ms per push of both species "
-          f"(CUDA events, mean of {REPS}, order kernel-plain-kernel-plain)")
+          f"(CUDA events, mean of {PT.REPS}, order "
+          "kernel-plain-kernel-plain); "
+          f"kernel device time {dev_ms:.5f} ms per push of both species "
+          f"(torch.profiler, {PT.REPS} pushes)")
     nbytes, flops = push_bytes(sorted_sp, g,
                                sum(sp.capacity for sp in sorted_sp))
     bms, bby = bound_ms(nbytes, flops)
@@ -335,9 +383,11 @@ def main():
     # --- phase 5: the 2-D main path, 200 steps ---
     n_particles = sum(int(sp.np) for sp in state.species)
     e0 = sim.energies(state).double().cpu().numpy()
+    FP.deposits = None
     state, elapsed, launches = run_steps(torch, sim, state, N_STEPS,
                                          counters)
     drift, unfinished = check_run(torch, sim, state, e0, "2-D run")
+    global_share(FP, f"{N_STEPS} steps")
     rate = n_particles * N_STEPS / elapsed
     print(f"run 2-D: {N_STEPS} steps, {n_particles} particles, "
           f"{elapsed * 1e3 / N_STEPS:.3f} ms/step, {rate:.4e} pushes/s "
@@ -350,7 +400,16 @@ def main():
         fail(f"2-D push kernel launched {launches[FP.KERNEL]} times in "
              f"{N_STEPS} steps")
     results[FP.KERNEL]["launches"] = launches[FP.KERNEL]
-    del sim, state, sorted_sp, fcoef
+    # 7 more steps (the first of them sorts): the lanes of the last push
+    # before the next sort, where the most rounds take the global path
+    step = sim.make_step()
+    for _ in range(7):
+        state = step(state)
+    max_err = max(max_err, compare_push(
+        torch, PT, FP, g, state.species, I.load_interpolator(state.fields, g),
+        qms, f"{N_STEPS + 7} steps (7 pushes after a sort)"))
+    results[FP.KERNEL]["max_abs_err"] = max_err
+    del sim, state, sorted_sp, fcoef, step
 
     # --- phase 6: 3-D kernels against their plain versions ---
     p3 = harris.HarrisParams(nx=32, ny=32, nz=32, nppc=128, Lx=16.0,
@@ -379,59 +438,21 @@ def main():
         species.append(s)
         homes.append(h)
     fcoef = I.load_interpolator(state.fields, g)
-    zeros = lambda: torch.zeros((g.nv, 12), device=fcoef.device)
     kw = dict(homes=homes, residency=True)
-    print("compare: 3-D kernel vs plain, first push after the first "
-          "rebucket (residency outbox)")
-    ker = FP3.fused_push3d_multi(clone_species(species), fcoef, zeros(), g,
-                                 qms, **kw)
-    ref = FP3.fused_push3d_multi_ref(clone_species(species), fcoef, zeros(),
-                                     g, qms, **kw)
-    torch.cuda.synchronize()
-    (sk, acc_k, em_k, obx_k, ores_k, unf_k) = ker
-    (sr, acc_r, em_r, obx_r, ores_r, unf_r) = ref
-    if int(unf_k) != int(unf_r) or int(ores_k) != int(ores_r):
-        fail(f"3-D: unfinished {int(unf_k)}/{int(unf_r)}, ores "
-             f"{int(ores_k)}/{int(ores_r)} (kernel/plain)")
-    err3 = 0.0
-    blk0 = 0
-    n_emit = 0
-    for k, (a, b) in enumerate(zip(sk, sr)):
-        diff = lane_diff(torch, a, b)
-        err3 = max(err3, compare_lanes(torch, k, a, b, diff))
-        ea, eb = em_k[k].cpu().numpy(), em_r[k].cpu().numpy()
-        if not np.array_equal(ea[~diff], eb[~diff]):
-            fail(f"3-D species {k}: emit marks differ")
-        n_emit += int(ea.sum())
-        # outbox columns of every block whose lanes' voxels all agree
-        nb = a.capacity // FP3.BLOCK
-        ok_blk = ~diff.reshape(nb, FP3.BLOCK).any(1)
-        cols = ((blk0 + np.nonzero(ok_blk)[0])[:, None] * FP3.OUT_CAP
-                + np.arange(FP3.OUT_CAP)[None, :]).reshape(-1)
-        for name in ("valid", "vox"):
-            x = getattr(obx_k, name).cpu().numpy()[cols]
-            y = getattr(obx_r, name).cpu().numpy()[cols]
-            if not np.array_equal(x, y):
-                fail(f"3-D species {k}: outbox {name} differs")
-        e = float(np.abs(obx_k.f.cpu().numpy()[:, cols]
-                         - obx_r.f.cpu().numpy()[:, cols]).max())
-        if e > 3e-5:
-            fail(f"3-D species {k}: outbox rows max abs err {e} > 3e-5")
-        err3 = max(err3, e)
-        blk0 += nb
-    err3 = max(err3, compare_acc(acc_k, acc_r))
-    print(f"  outbox: {n_emit} leavers emitted, {int(ores_k)} past the cap")
-    ms3 = time_push(torch, FP3.fused_push3d_multi, g, species, fcoef, qms,
-                    **kw)
-    plain3 = time_push(torch, FP3.fused_push3d_multi_ref, g, species, fcoef,
-                       qms, **kw)
-    ms3b = time_push(torch, FP3.fused_push3d_multi, g, species, fcoef, qms,
-                     **kw)
-    plain3b = time_push(torch, FP3.fused_push3d_multi_ref, g, species,
-                        fcoef, qms, **kw)
+    err3, ker = compare_push3d(torch, PT, FP3, g, species, homes, fcoef, qms,
+                               "first push after the first rebucket")
+    sk, _, em_k, obx_k, _, _ = ker
+    ms3, plain3, ms3b, plain3b = (
+        PT.time_push(fn, g, species, fcoef, qms, **kw)
+        for fn in (FP3.fused_push3d_multi, FP3.fused_push3d_multi_ref) * 2)
+    dev3 = PT.push_device_ms(FP3.fused_push3d_multi, "fused_push3d_kernel",
+                             g, species, fcoef, qms, **kw)
     print(f"timing ({card}): 3-D kernel {ms3:.4f} / {ms3b:.4f} ms, plain "
           f"{plain3:.4f} / {plain3b:.4f} ms per push of both species "
-          f"(CUDA events, mean of {REPS}, order kernel-plain-kernel-plain)")
+          f"(CUDA events, mean of {PT.REPS}, order "
+          "kernel-plain-kernel-plain); "
+          f"kernel device time {dev3:.5f} ms per push of both species "
+          f"(torch.profiler, {PT.REPS} pushes)")
     slots = sum(sp.capacity for sp in species)
     M = obx_k.vox.shape[0]
     nbytes, flops = push_bytes(species, g, slots,
@@ -471,10 +492,10 @@ def main():
     merge = lambda: RES.merge_p(sk, em_k, compact, starts_j, a_j)
     merge_ref = lambda: RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
     merge_ms, merge_plain, merge_ms2, merge_plain2 = (
-        cuda_ms(fn, REPS) for fn in (merge, merge_ref, merge, merge_ref))
+        cuda_ms(fn, PT.REPS) for fn in (merge, merge_ref, merge, merge_ref))
     print(f"timing ({card}): merge kernel {merge_ms:.4f} / {merge_ms2:.4f} "
           f"ms, plain {merge_plain:.4f} / {merge_plain2:.4f} ms per merge "
-          f"of both species (CUDA events, best of 3 windows of {REPS}, "
+          f"of both species (CUDA events, best of 3 windows of {PT.REPS}, "
           "kernel-plain-kernel-plain)")
     # bytes: live + emit per slot, keepers' 8 words read, newcomers' 8
     # words read, starts and counts, every slot's 8 words + live written
@@ -487,7 +508,7 @@ def main():
         replaces="vpic_tpu/ops/residency.py:232", max_abs_err=merge_err,
         ms=merge_ms, plain_ms=merge_plain, bound_ms=bms, bound_by=bby,
         library_ms=None)
-    del ker, ref, sk, sr, mk, mr, compact, species, fcoef
+    del ker, sk, mk, mr, compact, species, fcoef
 
     # --- phase 7: small 3-D deck against the CPU plain path ---
     small_reference(torch, harris, harris.HarrisParams(
@@ -497,9 +518,11 @@ def main():
     # --- phase 8: the 3-D residency path, 100 steps ---
     n_particles = sum(int(sp.np) for sp in state.species)
     e0 = sim.energies(state).double().cpu().numpy()
+    FP3.deposits = None
     state, elapsed, launches = run_steps(torch, sim, state, N_STEPS_3D,
                                          counters)
     drift, unfinished = check_run(torch, sim, state, e0, "3-D run")
+    global_share(FP3, f"{N_STEPS_3D} steps")
     rebuckets = int(state.diag["_res_rebuckets"])
     rate = n_particles * N_STEPS_3D / elapsed
     print(f"run 3-D: {N_STEPS_3D} steps, {n_particles} particles, "
@@ -521,6 +544,15 @@ def main():
         fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps")
     results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
+    # the residency lanes and home maps the run left, kernel against plain
+    err3, _ = compare_push3d(
+        torch, PT, FP3, g, [RES.slice_species(sp, E)
+                            for sp, E in zip(state.species, exts)],
+        [state.diag[f"_chart_home{k}"] for k in range(nsp)],
+        I.load_interpolator(state.fields, g), qms,
+        f"{N_STEPS_3D} steps after the first rebucket")
+    results[FP3.KERNEL]["max_abs_err"] = max(
+        results[FP3.KERNEL]["max_abs_err"], err3)
     del sim, state
 
     # --- phase 9: the residency prototypes' entry points ---

@@ -9,19 +9,23 @@ Tolerances: as tests/test_torch_cuda.py for the lanes (offsets and momenta
 3e-5, voxels equal except at most 1 lane in 1e5 within 1e-5 of a face, the
 accumulator 1e-5 max|acc|); emit marks and outbox rows equal for the lanes
 and blocks whose voxels agree, outbox floats to 3e-5, ``ores`` equal; the
-merge bit for bit in every lane."""
+merge bit for bit in every lane.  Cases that drive the deposits' global
+path (lanes outside their home brick, no home map, wraps across the
+periodic faces of the edge bricks) are held to the same tolerances, and
+the kernel's deposit count (FP3.deposits) to what the case implies."""
 
 import numpy as np
 import pytest
 import torch
 
 import vpic_tpu_torch as vt
+import vpic_tpu_torch.grid as G
 import vpic_tpu_torch.ops.fused_push3d as FP3
 import vpic_tpu_torch.ops.interp as I
 import vpic_tpu_torch.ops.residency as RES
 from vpic_tpu_torch.models import harris
 from vpic_tpu_torch.ops import _build
-from vpic_tpu_torch.state import SPECIES_NAMES
+from vpic_tpu_torch.state import SPECIES_NAMES, SpeciesState
 
 pytestmark = pytest.mark.gpu
 
@@ -75,9 +79,12 @@ def _sorted_state(sim):
     return g, species, homes, I.load_interpolator(state.fields, g), qms
 
 
-def _push_both(g, species, homes, fcoef, qms):
+def _push_both(g, species, homes, fcoef, qms, residency=True):
+    """The kernel (its deposit count reset before) and the plain version on
+    the same lanes."""
     zeros = lambda: torch.zeros((g.nv, 12), device=fcoef.device)
-    kw = dict(homes=homes, residency=True)
+    kw = dict(homes=homes, residency=residency)
+    FP3.deposits = None
     k = FP3.fused_push3d_multi(_clone(species), fcoef, zeros(), g, qms, **kw)
     r = FP3.fused_push3d_multi_ref(_clone(species), fcoef, zeros(), g, qms,
                                    **kw)
@@ -89,7 +96,11 @@ def _compare_push(k, r):
     (sk, acc_k, em_k, obx_k, ores_k, unf_k) = k
     (sr, acc_r, em_r, obx_r, ores_r, unf_r) = r
     assert int(unf_k) == int(unf_r)
-    assert int(ores_k) == int(ores_r)
+    residency = em_k is not None
+    if residency:
+        assert int(ores_k) == int(ores_r)
+    else:
+        em_k = em_r = [None] * len(sk)
     blk0 = 0
     for a, b, ea, eb in zip(sk, sr, em_k, em_r):
         live = a.live.cpu().numpy()
@@ -100,6 +111,8 @@ def _compare_push(k, r):
             np.testing.assert_allclose(getattr(a, n).cpu().numpy()[keep],
                                        getattr(b, n).cpu().numpy()[keep],
                                        atol=3e-5, err_msg=n)
+        if not residency:
+            continue
         assert np.array_equal(ea.cpu().numpy()[~diff],
                               eb.cpu().numpy()[~diff])
         nb = a.capacity // FP3.BLOCK
@@ -115,6 +128,11 @@ def _compare_push(k, r):
         blk0 += nb
     da, db = acc_k.cpu().numpy(), acc_r.cpu().numpy()
     assert np.abs(da - db).max() <= 1e-5 * max(np.abs(db).max(), 1e-3)
+
+
+def _deposits():
+    """(global-path rounds, all rounds) of the kernel since its reset."""
+    return tuple(FP3.deposits.tolist())
 
 
 def _merge_both(sk, em_k, obx_k, homes, g):
@@ -167,6 +185,92 @@ def test_kernels_on_outbox_overflow(cuda):
     assert emitted == filled * FP3.OUT_CAP
     assert int(k[4]) == 1024 - emitted > 0
     _merge_both(k[0], k[2], k[3], homes, g)
+
+
+def test_kernels_on_lanes_outside_their_home_brick(cuda):
+    """The beam's leavers past the outbox cap stay resident outside their
+    home brick; pushed on with the same home maps they leave the tile's
+    halo, and those rounds take the global path."""
+    sim = _beam_deck(cuda)
+    g, species, homes, fcoef, qms = _sorted_state(sim)
+    kw = dict(homes=homes, residency=True)
+    acc = torch.zeros((g.nv, 12), device=cuda)
+    work = _clone(species)
+    for _ in range(3):      # ~0.35 cells a push: into x-cell 9, the halo
+        work, _, _, _, ores, _ = FP3.fused_push3d_multi(work, fcoef, acc, g,
+                                                        qms, **kw)
+        assert int(ores) > 0                       # resident leavers
+    k, r = _push_both(g, work, homes, fcoef, qms)   # on into x-cell 10
+    _compare_push(k, r)
+    glob, every = _deposits()
+    assert 0 < glob < every
+
+
+def test_kernels_without_home_maps_take_the_global_path(cuda):
+    """No home map (the push without residency): no tile, every round
+    takes the global path."""
+    sim = harris.build(harris.HarrisParams(
+        nx=16, ny=16, nz=16, nppc=4, Lx=8.0, Ly=8.0, Lz=8.0, headroom=6.0),
+        device=cuda)
+    g, species, _, fcoef, qms = _sorted_state(sim)
+    k, r = _push_both(g, species, None, fcoef, qms, residency=False)
+    _compare_push(k, r)
+    glob, every = _deposits()
+    live = sum(int(sp.live.sum()) for sp in species)
+    assert glob == every >= live > 0
+
+
+def _edge_lanes(g, n, axis, device, seed, capacity=16 * 1024):
+    """``n`` live lanes (of ``capacity``) in the first and last cell layers
+    along ``axis``, a cell or more from every other face, moving out
+    through the ``axis`` faces at close to c."""
+    rng = np.random.default_rng(seed)
+    dims = (g.nx, g.ny, g.nz)
+    hi = rng.random(capacity) < 0.5
+    sgn = np.where(hi, 1.0, -1.0)
+    cell = [rng.integers(2, m, capacity) for m in dims]
+    cell[axis] = np.where(hi, dims[axis], 1)
+    off = [rng.uniform(-1, 1, capacity) for _ in range(3)]
+    off[axis] = sgn * rng.uniform(0.2, 1.0, capacity)
+    u = [rng.normal(0, 0.5, capacity) for _ in range(3)]
+    u[axis] = sgn * rng.uniform(2.0, 6.0, capacity)
+    live = np.arange(capacity) < n
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=device)
+    return SpeciesState(
+        dx=t(off[0]), dy=t(off[1]), dz=t(off[2]),
+        i=t(cell[0] + g.NX * (cell[1] + g.NY * cell[2]), torch.int32),
+        ux=t(u[0]), uy=t(u[1]), uz=t(u[2]),
+        w=t(rng.uniform(0.5, 1.5, capacity)), live=t(live, torch.bool),
+        np=t(n, torch.int32))
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_kernels_at_edge_bricks(cuda, axis):
+    """Lanes of the domain's edge bricks moving out through the faces of
+    one axis.  x has reflecting faces, as the harris deck: the lanes bounce
+    and every round stays in the home brick's tile.  y and z are periodic:
+    a round after a wrap lies across the domain from the tile and takes the
+    global path."""
+    g = G.partition_periodic_box(0, 0, 0, 1, 1, 1, 16, 16, 16, cvac=1.0,
+                                 eps0=1.0)
+    g = g.with_bc(0, pbc=G.REFLECT_PARTICLES).with_bc(
+        3, pbc=G.REFLECT_PARTICLES)
+    g = G.Grid(**{**g.__dict__, "dt": 0.95 * g.courant_length()})
+    rng = np.random.default_rng(11)
+    fcoef = torch.tensor(rng.normal(0, 0.3, (g.nv, 18)), dtype=torch.float32,
+                         device=cuda)
+    sorted_ = [FP3.brick_sort_p_home(_edge_lanes(g, 3000, axis, cuda, seed),
+                                     g) for seed in (1, 2)]
+    species = [s for s, _ in sorted_]
+    homes = [h for _, h in sorted_]
+    k, r = _push_both(g, species, homes, fcoef, [(-1.0, 1.0), (1.0, 1.5)])
+    _compare_push(k, r)
+    glob, every = _deposits()
+    assert every >= 6000
+    if axis == 0:
+        assert glob == 0
+    else:
+        assert 0 < glob < every
 
 
 def test_merge_kernel_every_block_kind(cuda):

@@ -1,5 +1,6 @@
 // push_lane.cuh -- the per-lane particle push shared by fused_push2d.cu and
-// fused_push3d.cu, so the two kernels cannot drift apart.
+// fused_push3d.cu, so the two kernels cannot drift apart, with the species
+// table, the deposit tiles and the launch counters they share.
 //
 // push_lane() computes, for one live lane, what vpic_tpu/ops/push.py
 // advance_p computes for periodic and reflecting particle faces:
@@ -10,12 +11,40 @@
 //   3. streak walk of at most max_streak rounds with the reference's
 //      tie-break (x, y, z, strict <; end-of-track 2.0 wins ties) and BIG-guarded
 //      divisions -- push.py:394-415; each round deposits the 12 quarter-face
-//      currents of _accumulate_j_cols (push.py:224-245) with atomicAdd into
-//      the (nv, 12) float32 accumulator;
+//      currents of _accumulate_j_cols (push.py:224-245) into the CUDA block's
+//      deposit tile in shared memory when the round's voxel lies in the tile,
+//      else with atomicAdd into the (nv, 12) float32 accumulator in device
+//      memory (the global path, counted);
 //   4. periodic faces wrap to the canonical cell and reflecting faces bounce in
 //      place, as push.py:528-543 does.  No particle ever sits in a ghost cell.
 // The walk is dimension-general: z-crossings and periodic_z are handled like
 // x and y, so the 2-D kernel (nz == 1) and the 3-D kernel share it unchanged.
+//
+// What bounds the deposits, and what the tiles do about it.  The TPU kernels
+// kept each block's accumulator in VMEM scratch and wrote it back once
+// (pallas_push.py:301, 683; pallas_push3d.py:419, 832).  Here the tile is
+// that scratch: a CUDA block zeroes TILE_STRIDE floats per voxel of its tile
+// in shared memory, its lanes add their rounds there, and after a
+// __syncthreads the block adds each non-zero tile entry into the accumulator
+// with one device atomic.  Sorted lanes put a block's rounds on a few
+// hundred voxels, so the device atomics fall from 12 per round per lane --
+// which serialised in L2 on the addresses that every block of a brick or
+// bucket shares -- to one per touched tile entry per block.  Hopper has no
+// float add in shared memory: each of a round's 12 shared adds is a
+// compare-and-swap loop (ATOMS.CAST.SPIN), and those loops are now the
+// largest part of the deposits.  The pad word of TILE_STRIDE puts the
+// voxels of a warp's lanes on different banks (with 12 floats, word j of
+// every voxel fell on 8 of the 32), which took a third off the 3-D push.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W by utils/push_timing.py
+// (device time per push of both species at the harris decks' shapes):
+// 3-D 1.63-1.67 ms with device atomics, 0.52-0.55 ms with the tiles; 2-D
+// 0.155-0.163 ms and 0.043-0.044 ms.  PERF.md has the breakdown.
+//
+// Only the order of the accumulator's sums changes.  The offsets'
+// arithmetic in the walk is rounded one operation at a time (__fmul_rn,
+// __fadd_rn), so no fused multiply-add that the compiler might form around
+// the deposit branch moves a lane: the lane state comes out bit for bit as
+// without tiles.
 
 #pragma once
 
@@ -26,13 +55,72 @@ namespace vpic_push {
 constexpr float ONE_THIRD = (float)(1.0 / 3.0);
 constexpr float TWO_FIFTEENTHS = (float)(2.0 / 15.0);
 constexpr float BIG = 3.4e38f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// What every lane of one species' launch shares.
+// Species one launch takes; the wrappers split more into several launches.
+constexpr int MAX_SPECIES = 8;
+// Per species, the pointers the entry points take, in this order.
+constexpr int SPECIES_PTRS = 11;
+
+// One species' lanes and constants in the launch's species table (passed by
+// value as a __grid_constant__ kernel parameter: no copy to the device).
+struct Species {
+  float* dx;
+  float* dy;
+  float* dz;
+  int* vox;
+  float* ux;
+  float* uy;
+  float* uz;
+  const float* w;
+  const bool* live;
+  const int* home;  // 3-D: (nblocks,) layout block -> home brick, or null
+  bool* emit;       // 3-D residency: (n,) emit marks, else null
+  int n;            // lanes
+  int blk0;         // this species' first CUDA block in the launch
+  int obx_col0;     // 3-D residency: this species' first outbox column
+  float qdt_2mc;
+  float qsp;
+};
+
+// Fills the species table from an entry point's host arrays: ptrs holds
+// SPECIES_PTRS pointers per species (dx dy dz vox ux uy uz w live home emit).
+inline void fill_species(Species* sp, int nsp, void* const* ptrs,
+                         const int* n, const int* blk0, const int* col0,
+                         const float* qdt_2mc, const float* qsp) {
+  for (int s = 0; s < nsp; ++s) {
+    void* const* q = ptrs + (size_t)s * SPECIES_PTRS;
+    Species& S = sp[s];
+    S.dx = (float*)q[0];
+    S.dy = (float*)q[1];
+    S.dz = (float*)q[2];
+    S.vox = (int*)q[3];
+    S.ux = (float*)q[4];
+    S.uy = (float*)q[5];
+    S.uz = (float*)q[6];
+    S.w = (const float*)q[7];
+    S.live = (const bool*)q[8];
+    S.home = (const int*)q[9];
+    S.emit = (bool*)q[10];
+    S.n = n[s];
+    S.blk0 = blk0[s];
+    S.obx_col0 = col0 ? col0[s] : 0;
+    S.qdt_2mc = qdt_2mc[s];
+    S.qsp = qsp[s];
+  }
+}
+
+// The species whose CUDA blocks include this one (blk0 ascending).
+__device__ __forceinline__ int species_of_block(const Species* sp, int nsp) {
+  int s = 0;
+  while (s + 1 < nsp && (int)blockIdx.x >= sp[s + 1].blk0) ++s;
+  return s;
+}
+
+// What every lane of a launch shares.
 struct PushParams {
   const float* fcoef;  // (nv, 18)
   float* acc;          // (nv, 12)
-  float qdt_2mc;
-  float qsp;
   float cdt_dx, cdt_dy, cdt_dz;
   int nx, ny, nz;
   int periodic_x, periodic_y, periodic_z;
@@ -46,9 +134,69 @@ struct Lane {
   int xi, yi, zi;
 };
 
-// Four quarter-face currents of one component (push.py:229-239).
-__device__ __forceinline__ void quad(float* a, float qu, float dY, float dZ,
-                                     float v5) {
+// A thread's deposit rounds: those that took the global path, and all.
+struct Rounds {
+  int global;
+  int all;
+};
+
+// Floats a voxel takes in a deposit tile: its 12 currents and one pad word.
+// With an odd stride the voxels of a warp's lanes fall on different banks;
+// with 12 a round's word j of every voxel fell on 8 of the 32.
+constexpr int TILE_STRIDE = 13;
+
+// Deposit tiles in shared memory at the 32-bit shared address `base`.
+// slot() gives a voxel's place in the tile, or -1 where it lies outside (its
+// rounds then take the global path).
+//
+// BoxTile: the voxels [x0, x0+e) x [y0, y0+e) x [z0, z0+e); e = 0 is no tile.
+struct BoxTile {
+  unsigned base;
+  int x0, y0, z0, e;
+  __device__ __forceinline__ int slot(int x, int y, int z, int) const {
+    const unsigned lx = (unsigned)(x - x0);
+    const unsigned ly = (unsigned)(y - y0);
+    const unsigned lz = (unsigned)(z - z0);
+    const unsigned ue = (unsigned)e;
+    return (lx < ue && ly < ue && lz < ue) ? (int)((lz * ue + ly) * ue + lx)
+                                           : -1;
+  }
+};
+
+// SpanTile: the linear voxels [v0, v0+len); len = 0 is no tile.
+struct SpanTile {
+  unsigned base;
+  int v0, len;
+  __device__ __forceinline__ int slot(int, int, int, int v) const {
+    const unsigned d = (unsigned)(v - v0);
+    return d < (unsigned)len ? (int)d : -1;
+  }
+};
+
+// Where a round's 12 currents go: a tile entry in shared memory (there is no
+// float add in shared memory on Hopper: red.shared.add.f32 compiles to a
+// compare-and-swap loop, ATOMS.CAST.SPIN), or the accumulator row in device
+// memory (REDG.E.ADD.F32).
+struct SharedAdd {
+  unsigned a;
+  __device__ __forceinline__ void operator()(int j, float x) const {
+    asm volatile("red.shared.add.f32 [%0], %1;" ::"r"(a + 4u * j), "f"(x)
+                 : "memory");
+  }
+};
+
+struct GlobalAdd {
+  float* a;
+  __device__ __forceinline__ void operator()(int j, float x) const {
+    atomicAdd(a + j, x);
+  }
+};
+
+// Four quarter-face currents of one component (push.py:229-239) into
+// columns j..j+3.
+template <class Add>
+__device__ __forceinline__ void quad(const Add& add, int j, float qu,
+                                     float dY, float dZ, float v5) {
   float v1 = qu * dY;
   float v0 = qu - v1;
   v1 = v1 + qu;
@@ -58,10 +206,21 @@ __device__ __forceinline__ void quad(float* a, float qu, float dY, float dZ,
   const float d = 1.0f - dZ;
   v0 = v0 * d;
   v1 = v1 * d;
-  atomicAdd(a + 0, v0 + v5);
-  atomicAdd(a + 1, v1 - v5);
-  atomicAdd(a + 2, v2 - v5);
-  atomicAdd(a + 3, v3 + v5);
+  add(j + 0, v0 + v5);
+  add(j + 1, v1 - v5);
+  add(j + 2, v2 - v5);
+  add(j + 3, v3 + v5);
+}
+
+// The 12 currents of one streak segment (_accumulate_j_cols).
+template <class Add>
+__device__ __forceinline__ void deposit(const Add& add, float q0, float sdx,
+                                        float sdy, float sdz, float midx,
+                                        float midy, float midz) {
+  const float v5 = q0 * sdx * sdy * sdz * ONE_THIRD;
+  quad(add, 0, q0 * sdx, midy, midz, v5);
+  quad(add, 4, q0 * sdy, midz, midx, v5);
+  quad(add, 8, q0 * sdz, midx, midy, v5);
 }
 
 // One face crossing along one axis: the particle is put on the face, then
@@ -84,12 +243,17 @@ __device__ __forceinline__ void cross(float& pos, float& disp, float& u,
   }
 }
 
-// Push one live lane of weight w sitting in linear voxel v.  On entry L holds
-// the lane's offsets and momentum; on exit its new offsets, momentum and
-// voxel coordinates.  Returns true when the lane is still walking after
+// Push one live lane of weight w sitting in linear voxel v, with the
+// species constants qdt_2mc and qsp, depositing into `tile` where it holds
+// the round's voxel.  On entry L holds the lane's offsets and momentum; on
+// exit its new offsets, momentum and voxel coordinates.  Adds the lane's
+// rounds to `r`.  Returns true when the lane is still walking after
 // max_streak rounds (an unfinished streak).
-__device__ __forceinline__ bool push_lane(const PushParams& p, int v, float w,
-                                          Lane& L) {
+template <class Tile>
+__device__ __forceinline__ bool push_lane(const PushParams& p,
+                                          const Tile& tile, float qdt_2mc,
+                                          float qsp, int v, float w, Lane& L,
+                                          Rounds& r) {
   const int NX = p.nx + 2;
   const int NY = p.ny + 2;
   const int SZ = NX * NY;
@@ -98,12 +262,12 @@ __device__ __forceinline__ bool push_lane(const PushParams& p, int v, float w,
   float py = L.py;
   float pz = L.pz;
 
-  const float* r = p.fcoef + (size_t)v * 18;
+  const float* row = p.fcoef + (size_t)v * 18;
   float c[18];
 #pragma unroll
-  for (int j = 0; j < 18; ++j) c[j] = __ldg(r + j);
+  for (int j = 0; j < 18; ++j) c[j] = __ldg(row + j);
 
-  const float qdt = p.qdt_2mc;
+  const float qdt = qdt_2mc;
   const float hax = qdt * ((c[0] + py * c[1]) + pz * (c[2] + py * c[3]));
   const float hay = qdt * ((c[4] + pz * c[5]) + px * (c[6] + pz * c[7]));
   const float haz = qdt * ((c[8] + px * c[9]) + py * (c[10] + px * c[11]));
@@ -140,7 +304,7 @@ __device__ __forceinline__ bool push_lane(const PushParams& p, int v, float w,
   int yi = rem / NX;
   int xi = rem - yi * NX;
 
-  const float q0 = p.qsp * w;
+  const float q0 = qsp * w;
   bool active = true;
   for (int round = 0; round < p.max_streak; ++round) {
     const float dirx = dpx > 0.0f ? 1.0f : -1.0f;
@@ -156,25 +320,34 @@ __device__ __forceinline__ bool push_lane(const PushParams& p, int v, float w,
     if (s2 < s) { s = s2; axis = 2; }
     const float frac = 0.5f * s;
 
-    const float sdx = dpx * frac;
-    const float sdy = dpy * frac;
-    const float sdz = dpz * frac;
-    const float midx = px + sdx;
-    const float midy = py + sdy;
-    const float midz = pz + sdz;
+    // the segment and the new offsets, each operation rounded on its own
+    // (no fused multiply-add): the lane state then does not depend on how
+    // the compiler schedules the deposits around them
+    const float sdx = __fmul_rn(dpx, frac);
+    const float sdy = __fmul_rn(dpy, frac);
+    const float sdz = __fmul_rn(dpz, frac);
+    const float midx = __fadd_rn(px, sdx);
+    const float midy = __fadd_rn(py, sdy);
+    const float midz = __fadd_rn(pz, sdz);
 
-    float* a = p.acc + (size_t)(xi + NX * (yi + NY * zi)) * 12;
-    const float v5 = q0 * sdx * sdy * sdz * ONE_THIRD;
-    quad(a + 0, q0 * sdx, midy, midz, v5);
-    quad(a + 4, q0 * sdy, midz, midx, v5);
-    quad(a + 8, q0 * sdz, midx, midy, v5);
+    const int cur = xi + NX * (yi + NY * zi);
+    const int sl = tile.slot(xi, yi, zi, cur);
+    if (sl >= 0) {
+      deposit(SharedAdd{tile.base + 4u * TILE_STRIDE * (unsigned)sl}, q0,
+              sdx, sdy, sdz, midx, midy, midz);
+    } else {
+      deposit(GlobalAdd{p.acc + (size_t)cur * 12}, q0, sdx, sdy, sdz, midx,
+              midy, midz);
+      ++r.global;
+    }
+    ++r.all;
 
-    dpx = dpx - sdx;
-    dpy = dpy - sdy;
-    dpz = dpz - sdz;
-    px = px + sdx + sdx;
-    py = py + sdy + sdy;
-    pz = pz + sdz + sdz;
+    dpx = __fsub_rn(dpx, sdx);
+    dpy = __fsub_rn(dpy, sdy);
+    dpz = __fsub_rn(dpz, sdz);
+    px = __fadd_rn(midx, sdx);
+    py = __fadd_rn(midy, sdy);
+    pz = __fadd_rn(midz, sdz);
 
     if (axis == 3) {
       active = false;
@@ -199,6 +372,32 @@ __device__ __forceinline__ bool push_lane(const PushParams& p, int v, float w,
   L.yi = yi;
   L.zi = zi;
   return active;
+}
+
+// Adds every thread's rounds and unfinished lanes into the launch's counters
+// (deposits[0] global-path rounds, deposits[1] all rounds), one device atomic
+// of each per CUDA block.  `sh` is 3 shared words that thread 0 zeroed
+// before any thread's last __syncthreads; every thread of the block must
+// call it, converged.
+__device__ __forceinline__ void add_counts(unsigned* sh, const Rounds& r,
+                                           int unfinished_lanes,
+                                           unsigned long long* deposits,
+                                           int* unfinished) {
+  const unsigned g = __reduce_add_sync(FULL, (unsigned)r.global);
+  const unsigned a = __reduce_add_sync(FULL, (unsigned)r.all);
+  const unsigned u = __reduce_add_sync(FULL, (unsigned)unfinished_lanes);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    if (g) atomicAdd(sh + 0, g);
+    if (a) atomicAdd(sh + 1, a);
+    if (u) atomicAdd(sh + 2, u);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (sh[0]) atomicAdd(deposits + 0, (unsigned long long)sh[0]);
+    if (sh[1]) atomicAdd(deposits + 1, (unsigned long long)sh[1]);
+    if (sh[2]) atomicAdd(unfinished, (int)sh[2]);
+  }
 }
 
 }  // namespace vpic_push

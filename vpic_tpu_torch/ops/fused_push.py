@@ -3,10 +3,13 @@ kernel (counterpart of ``vpic_tpu/ops/pallas_push.py``).
 
 ``fused_push_multi`` pushes every species and deposits their currents into
 one (nv, 12) accumulator.  On CUDA tensors it launches
-``csrc/fused_push2d.cu`` once per species (on the current stream; the
-particle tensors are updated in place); on CPU tensors it runs the plain
-version ``fused_push_multi_ref`` (``ops/push.advance_p`` per species).  It
-never falls back from one to the other.
+``csrc/fused_push2d.cu`` once for every species (on the current stream; the
+particle tensors are updated in place): each CUDA block takes LANES lanes of
+one species and deposits into a tile of the accumulator in shared memory,
+and the rounds whose voxel lies outside the tile take the global path,
+counted in ``deposits``.  On CPU tensors it runs the plain version
+``fused_push_multi_ref`` (``ops/push.advance_p`` per species).  It never
+falls back from one to the other.
 
 The kernel works in canonical voxels and wraps periodic faces itself, so
 none of the TPU kernel's voxel windows, ghost residents or outlier replay
@@ -28,9 +31,14 @@ from .push import UNFINISHED, advance_p, check_particle_bcs, gather_sp_rows
 
 BUCKET = 128
 KERNEL = "fused_push2d"
+LANES = 1024                # lanes (and threads) per CUDA block of the kernel
+MAX_SPECIES = 8             # species one launch takes (the kernel's table)
 
 # Kernel launches made by fused_push_multi since the count was last reset.
 launches = 0
+# Deposit rounds of those launches, on the card: [taken the global path,
+# all].  None until the first launch; set it to None to reset the count.
+deposits = None
 
 
 def supports(g: Grid) -> bool:
@@ -111,8 +119,70 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int]
-             + [ctypes.c_float] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+def launch_plan(blocks: Sequence[int], run: int = 1) -> Tuple[List[int], int]:
+    """(blk0, grid) of one launch: species k's ``blocks[k]`` lane blocks
+    are served by ceil(blocks[k] / run) CUDA blocks, species after species,
+    so no CUDA block holds lanes of two species; blk0[k] is species k's
+    first CUDA block and grid the launch's count."""
+    if run < 1:
+        raise ValueError(f"run={run} must be at least 1")
+    blk0, grid = [], 0
+    for nb in blocks:
+        blk0.append(grid)
+        grid += -(-nb // run)
+    return blk0, grid
+
+
+def species_groups(species: Sequence[SpeciesState]) -> List[List[int]]:
+    """The indices of the species with lanes, MAX_SPECIES to a launch."""
+    todo = [k for k, sp in enumerate(species) if sp.capacity]
+    return [todo[j:j + MAX_SPECIES] for j in range(0, len(todo), MAX_SPECIES)]
+
+
+def c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def c_species_table(species: Sequence[SpeciesState], qms, g: Grid,
+                    homes=None, emits=None):
+    """The entry points' per-species host arrays for one launch: the 11
+    pointers per species (dx dy dz vox ux uy uz w live home emit; home and
+    emit null when not given), the lane counts, qdt_2mc and qsp."""
+    ptrs = []
+    for k, sp in enumerate(species):
+        ptrs += [t.data_ptr() for t in (sp.dx, sp.dy, sp.dz, sp.i, sp.ux,
+                                        sp.uy, sp.uz, sp.w, sp.live)]
+        ptrs += [None if homes is None else homes[k].data_ptr(),
+                 None if emits is None else emits[k].data_ptr()]
+    return (c_array(ctypes.c_void_p, ptrs),
+            c_array(ctypes.c_int, [sp.capacity for sp in species]),
+            c_array(ctypes.c_float,
+                    [(q * g.dt) / (2.0 * m * g.cvac) for q, m in qms]),
+            c_array(ctypes.c_float, [q for q, _ in qms]))
+
+
+def push_constants(g: Grid):
+    """The entry points' grid arguments: cdt_dx, cdt_dy, cdt_dz, nx, ny,
+    nz, and whether each axis' particle faces are periodic."""
+    periodic = [int(g.axis_bc(ax, -1, particles=True) == P_PERIODIC)
+                for ax in range(3)]
+    return (g.cvac * g.dt * g.rdx, g.cvac * g.dt * g.rdy,
+            g.cvac * g.dt * g.rdz, g.nx, g.ny, g.nz, *periodic)
+
+
+def deposit_counter(count, dev: torch.device) -> torch.Tensor:
+    """``count`` when it is a deposit count on ``dev``, else a new one."""
+    if count is None or count.device != dev:
+        count = torch.zeros(2, dtype=torch.int64, device=dev)
+    return count
+
+
+TABLE_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+GRID_ARGTYPES = [ctypes.c_float] * 3 + [ctypes.c_int] * 7
+_ARGTYPES = (TABLE_ARGTYPES + [ctypes.POINTER(ctypes.c_float)] * 2
+             + [ctypes.c_int] + [ctypes.c_void_p] * 4 + GRID_ARGTYPES
+             + [ctypes.c_void_p])
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -121,6 +191,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.fused_push2d_blocks_per_sm.argtypes = []
+        lib.fused_push2d_blocks_per_sm.restype = ctypes.c_int
         lib.fused_push2d_error_string.argtypes = [ctypes.c_int]
         lib.fused_push2d_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,10 +212,12 @@ def fused_push_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
     0-d int32 device tensor counting lanes still walking after
     ``max_streak`` rounds.
 
-    CUDA tensors: one kernel launch per species; the species tensors are
-    updated IN PLACE and the same objects are returned.  CPU tensors: the
-    plain version, which returns new tensors.  Any other device raises."""
-    global launches
+    CUDA tensors: one kernel launch for every species (MAX_SPECIES to a
+    launch); the species tensors are updated IN PLACE and the same objects
+    are returned, and the module's ``deposits`` counts the launch's deposit
+    rounds on the card.  CPU tensors: the plain version, which returns new
+    tensors.  Any other device raises."""
+    global launches, deposits
     supports(g)
     dev = fcoef.device
     if dev.type == "cpu":
@@ -164,22 +238,17 @@ def fused_push_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
 
     lib = _kernel_lib()
     unfinished = torch.zeros((1,), dtype=torch.int32, device=dev)
+    deposits = deposit_counter(deposits, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    periodic = [int(g.axis_bc(ax, -1, particles=True) == P_PERIODIC)
-                for ax in range(3)]
-    cdt = (g.cvac * g.dt * g.rdx, g.cvac * g.dt * g.rdy,
-           g.cvac * g.dt * g.rdz)
-    for sp, (q, m) in zip(species, qms):
-        if sp.capacity == 0:
-            continue
-        qdt_2mc = (q * g.dt) / (2.0 * m * g.cvac)
+    for grp in species_groups(species):
+        sps = [species[k] for k in grp]
+        ptrs, n, qdt_2mc, qsp = c_species_table(sps, [qms[k] for k in grp],
+                                                g)
+        blk0, grid = launch_plan([-(-sp.capacity // LANES) for sp in sps])
         rc = lib.fused_push2d(
-            sp.dx.data_ptr(), sp.dy.data_ptr(), sp.dz.data_ptr(),
-            sp.i.data_ptr(), sp.ux.data_ptr(), sp.uy.data_ptr(),
-            sp.uz.data_ptr(), sp.w.data_ptr(), sp.live.data_ptr(),
-            fcoef.data_ptr(), acc.data_ptr(), unfinished.data_ptr(),
-            sp.capacity, qdt_2mc, q, *cdt, g.nx, g.ny, g.nz, *periodic,
-            max_streak, stream)
+            len(sps), ptrs, n, c_array(ctypes.c_int, blk0), qdt_2mc, qsp,
+            grid, fcoef.data_ptr(), acc.data_ptr(), unfinished.data_ptr(),
+            deposits.data_ptr(), *push_constants(g), max_streak, stream)
         if rc != 0:
             msg = lib.fused_push2d_error_string(rc).decode()
             raise RuntimeError(f"fused_push2d launch failed: {msg} ({rc})")

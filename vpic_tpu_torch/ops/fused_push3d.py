@@ -3,9 +3,12 @@ and the hand-written CUDA push kernel with the residency epilogue
 (counterpart of ``vpic_tpu/ops/pallas_push3d.py``).
 
 ``fused_push3d_multi`` pushes every species of a 3-D deck.  On CUDA tensors
-it launches ``csrc/fused_push3d.cu`` once per species (one CUDA block per
-1024-lane block of the layout; the lane tensors are updated in place); on
-CPU tensors it runs the plain version ``fused_push3d_multi_ref``
+it launches ``csrc/fused_push3d.cu`` once for every species (each CUDA
+block serves a run of consecutive 1024-lane layout blocks of one species
+and deposits into its home brick's tile of the accumulator in shared
+memory; the lane tensors are updated in place, and the rounds that take
+the global path are counted in ``deposits``); on CPU tensors it runs the
+plain version ``fused_push3d_multi_ref``
 (``ops/push.advance_p`` per species, plus the residency epilogue in torch).
 It never falls back from one to the other.  With ``residency`` it also
 copies each block's brick-leavers into the block's outbox columns, which
@@ -38,10 +41,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..grid import P_PERIODIC, Grid
+from ..grid import Grid
 from ..state import SpeciesState
 from . import _build
-from .fused_push import _check, _round_up, packed_src_sort
+from .fused_push import (GRID_ARGTYPES, TABLE_ARGTYPES, _check, _round_up,
+                         c_array, c_species_table, deposit_counter,
+                         launch_plan, packed_src_sort, push_constants,
+                         species_groups)
 from .push import UNFINISHED, advance_p, check_particle_bcs, gather_sp_rows
 
 B3 = 8                      # 3-D brick side (cells)
@@ -51,9 +57,14 @@ BLOCK = 1024                # lanes per layout block (= the sort quantum)
 OUT_CAP = 128               # outbox columns per block
 KERNEL = "fused_push3d"
 LANE_FIELDS = ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w", "live")
+WAVES = 2                   # the kernel's grid: at most this many waves
+                            # of the resident blocks (1, 2 and 4 time alike)
 
 # Kernel launches made by fused_push3d_multi since the count was last reset.
 launches = 0
+# Deposit rounds of those launches, on the card: [taken the global path,
+# all].  None until the first launch; set it to None to reset the count.
+deposits = None
 
 
 class Outbox(NamedTuple):
@@ -283,11 +294,22 @@ def fused_push3d_multi_ref(species: Sequence[SpeciesState], fcoef, acc,
     return out, acc, emits, obx, ores, unfinished
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int]
-             + [ctypes.c_float] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_int] + [ctypes.c_void_p] * 5
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int]
-             + [ctypes.c_void_p])
+def run_length(nblocks: int, slots: int) -> int:
+    """Layout blocks per CUDA block: the fewest that keep a launch of
+    ``nblocks`` layout blocks within WAVES waves of ``slots`` resident CUDA
+    blocks (SMs x blocks per SM).  Longer runs flush their tiles fewer
+    times; the waves keep every SM busy to the end."""
+    if slots < 1:
+        raise ValueError(f"slots={slots} must be at least 1")
+    return max(1, -(-nblocks // (WAVES * slots)))
+
+
+_ARGTYPES = (TABLE_ARGTYPES + [ctypes.POINTER(ctypes.c_int)]
+             + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 4 + GRID_ARGTYPES + [ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
+             + [ctypes.c_int] + [ctypes.c_void_p])
+_slots = {}                 # device index -> resident CUDA blocks
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -296,9 +318,25 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
+        lib.fused_push3d_blocks_per_sm.argtypes = []
+        lib.fused_push3d_blocks_per_sm.restype = ctypes.c_int
         lib.fused_push3d_error_string.argtypes = [ctypes.c_int]
         lib.fused_push3d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def resident_blocks(dev: torch.device) -> int:
+    """CUDA blocks of the kernel the card holds at once."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _slots:
+        with torch.cuda.device(idx):
+            per_sm = _kernel_lib().fused_push3d_blocks_per_sm()
+        if per_sm < 1:
+            raise RuntimeError("fused_push3d: no block of the kernel fits "
+                               "on an SM")
+        _slots[idx] = per_sm * torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _slots[idx]
 
 
 def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
@@ -312,7 +350,8 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
     ``fcoef`` is the (nv, 18) load_interpolator table, ``acc`` the (nv, 12)
     float32 accumulator (added to in place), ``qms`` (charge, mass) per
     species, ``homes`` the per-species (ceil(capacity/1024),) int32 block ->
-    home brick maps of the last brick sort (needed with ``residency``).
+    home brick maps of the last brick sort (needed with ``residency``;
+    without them every deposit takes the global path).
 
     Returns (species, acc, emits, outbox, ores, unfinished): per-species
     bool emit marks (a lane copied to its block's outbox), the Outbox
@@ -321,10 +360,12 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
     still walking after ``max_streak`` rounds.  Without ``residency`` emits,
     outbox and ores are None.
 
-    CUDA tensors: one kernel launch per species; the species tensors are
-    updated IN PLACE and the same objects are returned.  CPU tensors: the
-    plain version, which returns new tensors.  Any other device raises."""
-    global launches
+    CUDA tensors: one kernel launch for every species (MAX_SPECIES to a
+    launch); the species tensors are updated IN PLACE and the same objects
+    are returned, and the module's ``deposits`` counts the launch's deposit
+    rounds on the card.  CPU tensors: the plain version, which returns new
+    tensors.  Any other device raises."""
+    global launches, deposits
     check3d(g, max((sp.capacity for sp in species), default=0))
     dev = fcoef.device
     if dev.type == "cpu":
@@ -338,6 +379,8 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
         raise ValueError(f"out_cap={out_cap} must be in (0, {BLOCK}]")
     _check(fcoef, "fcoef", torch.float32, (g.nv, 18), dev)
     _check(acc, "acc", torch.float32, (g.nv, 12), dev)
+    if residency and (homes is None or len(homes) != len(species)):
+        raise ValueError("residency needs one home map per species")
     nblocks = [(sp.capacity + BLOCK - 1) // BLOCK for sp in species]
     for k, sp in enumerate(species):
         n = sp.capacity
@@ -346,13 +389,12 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
                    (n,), dev)
         _check(sp.i, f"species[{k}].i", torch.int32, (n,), dev)
         _check(sp.live, f"species[{k}].live", torch.bool, (n,), dev)
-        if residency:
-            if homes is None or len(homes) != len(species):
-                raise ValueError("residency needs one home map per species")
+        if homes is not None:
             _check(homes[k], f"homes[{k}]", torch.int32, (nblocks[k],), dev)
 
     lib = _kernel_lib()
     unfinished = torch.zeros((1,), dtype=torch.int32, device=dev)
+    deposits = deposit_counter(deposits, dev)
     emits = obx = ores = None
     M = sum(nblocks) * out_cap
     if residency:
@@ -363,30 +405,27 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
         emits = [torch.empty((sp.capacity,), dtype=torch.bool, device=dev)
                  for sp in species]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    periodic = [int(g.axis_bc(ax, -1, particles=True) == P_PERIODIC)
-                for ax in range(3)]
-    cdt = (g.cvac * g.dt * g.rdx, g.cvac * g.dt * g.rdy,
-           g.cvac * g.dt * g.rdz)
-    col0 = 0
-    for k, (sp, (q, m)) in enumerate(zip(species, qms)):
-        if sp.capacity == 0:
-            continue
-        qdt_2mc = (q * g.dt) / (2.0 * m * g.cvac)
-        res = ([t.data_ptr() for t in (homes[k], emits[k], obx.f, obx.vox,
-                                       obx.valid)]
-               if residency else [None] * 5)
+    col0 = [sum(nblocks[:k]) * out_cap for k in range(len(species))]
+    res = ([obx.f.data_ptr(), obx.vox.data_ptr(), obx.valid.data_ptr(), M,
+            ores.data_ptr()] if residency else [None, None, None, M, None])
+    slots = resident_blocks(dev)
+    for grp in species_groups(species):
+        sps = [species[k] for k in grp]
+        ptrs, n, qdt_2mc, qsp = c_species_table(
+            sps, [qms[k] for k in grp], g,
+            homes=None if homes is None else [homes[k] for k in grp],
+            emits=None if emits is None else [emits[k] for k in grp])
+        run = run_length(sum(nblocks[k] for k in grp), slots)
+        blk0, grid = launch_plan([nblocks[k] for k in grp], run)
         rc = lib.fused_push3d(
-            sp.dx.data_ptr(), sp.dy.data_ptr(), sp.dz.data_ptr(),
-            sp.i.data_ptr(), sp.ux.data_ptr(), sp.uy.data_ptr(),
-            sp.uz.data_ptr(), sp.w.data_ptr(), sp.live.data_ptr(),
-            fcoef.data_ptr(), acc.data_ptr(), unfinished.data_ptr(),
-            sp.capacity, qdt_2mc, q, *cdt, g.nx, g.ny, g.nz, *periodic,
-            max_streak, int(residency), *res, M, col0,
-            ores.data_ptr() if residency else None, out_cap, stream)
+            len(sps), ptrs, n, c_array(ctypes.c_int, blk0),
+            c_array(ctypes.c_int, [col0[k] for k in grp]), qdt_2mc, qsp,
+            grid, run, fcoef.data_ptr(), acc.data_ptr(),
+            unfinished.data_ptr(), deposits.data_ptr(), *push_constants(g),
+            max_streak, int(residency), *res, out_cap, stream)
         if rc != 0:
             msg = lib.fused_push3d_error_string(rc).decode()
             raise RuntimeError(f"fused_push3d launch failed: {msg} ({rc})")
         launches += 1
-        col0 += nblocks[k] * out_cap
     return (list(species), acc, emits, obx,
             ores[0] if residency else None, unfinished[0])
