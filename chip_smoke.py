@@ -6,10 +6,11 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. build: the six kernels (csrc/fused_push2d.cu, fused_push3d.cu,
-     merge_p.cu, compact_block.cu, mailbox.cu, field_beb.cu) built for
-     sm_90a, one nvcc each, started together; prints ptxas' registers /
-     spills / shared memory, and the push kernels' CUDA blocks per SM;
+  2. build: the six kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
+     merge_p.cu, compact_block.cu with the compaction and the block copy,
+     mailbox.cu, field_beb.cu) built for sm_90a, one nvcc each, started
+     together; prints ptxas' registers / spills / shared memory, and the
+     push kernels' CUDA blocks per SM;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
      on the 64^2 x 64 ppc harris state at the main path's shapes, after the
      bucket sort; prints its deposit rounds that took the global path and
@@ -43,9 +44,13 @@ Phases, each of which must pass (any failure exits non-zero):
   9. residency prototypes: the entry points vpic_tpu_torch.scripts.
      residency_proto and residency_grid_bench (their main()), which hold the
      compaction kernel against numpy and its plain version bit for bit with
-     equal counts at (9, 4096), at (16, 64 x 4096) and on the all-true mask,
-     and the mailbox kernel at 96 blocks of (16, 128), and time kernel,
-     plain version and library call;
+     equal counts at (9, 4096) and (16, 64 x 4096) (two entries of the
+     kernels' line, one per entry point, each with its launches), the
+     block copy (compact_blocks without a mask) at (16, 64 x 4096), and
+     the mailbox kernel at 96 blocks of (16, 128), into a zeroed output
+     and into a NaN-filled out=; and time kernel, plain version and
+     library call (CUDA events), with the kernel's and the library call's
+     device time;
  10. field trio: the entry point vpic_tpu_torch.scripts.field_fuse_proto
      (its main()) at the 64^2 x 4 ppc harris fields and at the 32^3 harris
      fields (4 ppc), fused kernel against the plain trio to 1e-6 abs on each
@@ -286,6 +291,91 @@ def check_run(torch, sim, state, e0, what):
     return drift, unfinished
 
 
+def residency_prototypes(counters, card):
+    """Phase 9: the entry points scripts.residency_proto and
+    residency_grid_bench, each run with the kernel counts set to 0 just
+    before and read just after; fails on a kernel not launched or a result
+    that differs by a bit.  Returns the kernels' line entries by name."""
+    from vpic_tpu_torch.ops import compact as C
+    from vpic_tpu_torch.scripts import residency_grid_bench as RG
+    from vpic_tpu_torch.scripts import residency_proto as RP
+
+    results = {}
+    reset_counts(counters)
+    proto = RP.main([])
+    launches = read_counts(counters)
+    reset_counts(counters)
+    grid = RG.main([])
+    launches_grid = read_counts(counters)
+    print(f"run prototypes: launches {launches} (residency_proto), "
+          f"{launches_grid} (residency_grid_bench)")
+    if launches[C.KERNEL] == 0 or launches[C.MAILBOX_KERNEL] == 0 or \
+            launches_grid[C.KERNEL] == 0 or launches_grid[C.COPY_KERNEL] == 0:
+        fail("a compaction, block copy or mailbox kernel was not launched")
+    calls = {"compaction (9, 4096)": proto["compaction"],
+             "compaction (16, 64 x 4096)": grid["compact"],
+             "copy (16, 64 x 4096)": grid["copy"],
+             "mailbox 96 x (16, 128)": proto["mailbox"],
+             "mailbox into out=": proto["mailbox_out"]}
+    if not all(c["bit_exact"] and c["max_abs_err"] == 0.0
+               for c in calls.values()):
+        fail("a prototype kernel differs from its plain version")
+    for what, c in calls.items():
+        if "ms" not in c:
+            continue
+        print(f"timing ({card}): {what}: kernel {c['ms']:.5f} ms (device "
+              f"{c['device_ms']:.6f}), plain {c['plain_ms']:.5f}, library "
+              f"{c['library_ms']:.5f} ms (device "
+              f"{c['library_device_ms']:.6f}) per call; == plain and numpy, "
+              "bit for bit (CUDA events, best of 3 windows; device time from "
+              "torch.profiler)")
+    for variant in ("copy", "compact"):
+        c = grid[variant]
+        print(f"timing ({card}): {variant} (16, 64 x 4096) after a 64 MB "
+              f"write: kernel device {c['cold_device_ms']:.6f} ms, library "
+              f"device {c['library_cold_device_ms']:.6f} ms")
+    # bytes: each row read and written once, a float mask read once
+    compactions = (
+        (C.KERNEL, proto["compaction"], launches,
+         "scripts/residency_proto.py:42"),
+        (C.KERNEL + "_grid", grid["compact"], launches_grid,
+         "scripts/residency_grid_bench.py:14, "
+         "scripts/residency_grid_bench2.py:12"))
+    for name, c, runs, where in compactions:
+        R, Pn = c["shape"]
+        bms, bby = bound_ms(2 * R * Pn * 4 + Pn * 4, 0)
+        results[name] = dict(
+            name=name, route="cuda",
+            source="vpic_tpu_torch/csrc/compact_block.cu", replaces=where,
+            launches=runs[C.KERNEL], max_abs_err=c["max_abs_err"],
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
+            library_ms=c["library_ms"])
+    c = grid["copy"]
+    R, Pn = c["shape"]
+    bms, bby = bound_ms(2 * R * Pn * 4, 0)
+    results[C.COPY_KERNEL] = dict(
+        name=C.COPY_KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/compact_block.cu",
+        replaces="scripts/residency_grid_bench.py:14 (make(False)), "
+                 "scripts/residency_grid_bench2.py:12 (make('copy'))",
+        launches=launches_grid[C.COPY_KERNEL], max_abs_err=c["max_abs_err"],
+        ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
+        library_ms=c["library_ms"])
+    c = proto["mailbox"]
+    R, M = c["shape"]
+    bms, bby = bound_ms(2 * R * M * c["blocks"] * 4 + 4 * c["blocks"], 0)
+    results[C.MAILBOX_KERNEL] = dict(
+        name=C.MAILBOX_KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/mailbox.cu",
+        replaces="scripts/residency_proto.py:110",
+        launches=launches[C.MAILBOX_KERNEL],
+        max_abs_err=max(c["max_abs_err"],
+                        proto["mailbox_out"]["max_abs_err"]),
+        ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
+        library_ms=c["library_ms"])
+    return results
+
+
 def main():
     import torch
 
@@ -306,8 +396,6 @@ def main():
     from vpic_tpu_torch.scripts import card as card_and_power
     from vpic_tpu_torch.scripts import cuda_ms
     from vpic_tpu_torch.scripts import field_fuse_proto as RF
-    from vpic_tpu_torch.scripts import residency_grid_bench as RG
-    from vpic_tpu_torch.scripts import residency_proto as RP
     from vpic_tpu_torch.utils import push_timing as PT
 
     card = card_and_power()
@@ -317,15 +405,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     counters = {FP.KERNEL: (FP, "launches"), FP3.KERNEL: (FP3, "launches"),
                 RES.KERNEL: (RES, "launches"), C.KERNEL: (C, "launches"),
+                C.COPY_KERNEL: (C, "copy_launches"),
                 C.MAILBOX_KERNEL: (C, "mailbox_launches"),
                 FF.KERNEL: (FF, "launches")}
+    sources = [FP.KERNEL, FP3.KERNEL, RES.KERNEL, C.KERNEL, C.MAILBOX_KERNEL,
+               FF.KERNEL]
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
-    libs = _build.build_many(list(counters))
+    libs = _build.build_many(sources)
     print(f"build: {', '.join(lib.name for lib in libs)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
-    for name in counters:
+    for name in sources:
         log = _build.build_log(name)
         if "sm_90a" not in log:
             fail(f"{name} was not built for sm_90a")
@@ -556,49 +647,7 @@ def main():
     del sim, state
 
     # --- phase 9: the residency prototypes' entry points ---
-    reset_counts(counters)
-    proto = RP.main([])
-    grid = RG.main([])
-    launches = read_counts(counters)
-    print(f"run prototypes: launches {launches}")
-    if launches[C.KERNEL] == 0 or launches[C.MAILBOX_KERNEL] == 0:
-        fail("the compaction or the mailbox kernel was not launched")
-    checks = [proto["compaction"], grid["copy"], grid["compact"],
-              proto["mailbox"]]
-    if not all(c["bit_exact"] and c["max_abs_err"] == 0.0 for c in checks):
-        fail("a prototype kernel differs from its plain version")
-    for what, c in (("compaction (9, 4096)", proto["compaction"]),
-                    ("copy (16, 64 x 4096)", grid["copy"]),
-                    ("compaction (16, 64 x 4096)", grid["compact"]),
-                    ("mailbox 96 x (16, 128)", proto["mailbox"])):
-        print(f"timing ({card}): {what}: kernel {c['ms']:.5f} ms (device "
-              f"{c['device_ms']:.5f}), plain {c['plain_ms']:.5f}, library "
-              f"{c['library_ms']:.5f} ms per call; == plain and numpy, bit "
-              "for bit (CUDA events, best of 3 windows; device time from "
-              "torch.profiler)")
-    c = grid["compact"]
-    R, Pn = c["shape"]
-    bms, bby = bound_ms(2 * R * Pn * 4 + Pn * 4, 0)
-    results[C.KERNEL] = dict(
-        name=C.KERNEL, route="cuda",
-        source="vpic_tpu_torch/csrc/compact_block.cu",
-        replaces="scripts/residency_proto.py:42, "
-                 "scripts/residency_grid_bench.py:14, "
-                 "scripts/residency_grid_bench2.py:12",
-        launches=launches[C.KERNEL],
-        max_abs_err=max(x["max_abs_err"] for x in checks[:3]), ms=c["ms"],
-        plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
-        library_ms=c["library_ms"])
-    c = proto["mailbox"]
-    R, M = c["shape"]
-    bms, bby = bound_ms(2 * R * M * c["blocks"] * 4 + 4 * c["blocks"], 0)
-    results[C.MAILBOX_KERNEL] = dict(
-        name=C.MAILBOX_KERNEL, route="cuda",
-        source="vpic_tpu_torch/csrc/mailbox.cu",
-        replaces="scripts/residency_proto.py:110",
-        launches=launches[C.MAILBOX_KERNEL], max_abs_err=c["max_abs_err"],
-        ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bms, bound_by=bby,
-        library_ms=c["library_ms"])
+    results.update(residency_prototypes(counters, card))
 
     # --- phase 10: the fused field trio's entry point ---
     reset_counts(counters)

@@ -5,8 +5,9 @@ the fixture, never at import).  This file imports neither jax nor vpic_tpu:
 
     python -m pytest -m gpu --noconftest tests/test_torch_cuda_protos.py
 
-Tolerances: compaction and mailbox bit for bit (pure data movement, a -0.0
-and a NaN included); the field trio to 1e-6 abs on each of its 9 outputs,
+Tolerances: compaction, block copy and mailbox bit for bit (pure data
+movement, a -0.0 and a NaN included), each one kernel launch a call (the
+mailbox into a given ``out=``); the field trio to 1e-6 abs on each of its 9 outputs,
 ghost planes included (the prototype's own bound; the kernel rounds every
 operation as the plain version does, so 0 is expected)."""
 
@@ -22,6 +23,7 @@ import vpic_tpu_torch.ops.field_fuse as FF
 import vpic_tpu_torch.state as ST
 from vpic_tpu_torch.models import harris
 from vpic_tpu_torch.ops import _build
+from vpic_tpu_torch.scripts import device_kernels
 
 pytestmark = pytest.mark.gpu
 
@@ -44,13 +46,42 @@ def test_kernels_build_for_sm_90a(cuda):
     _build.build_many(KERNELS)
     for name in KERNELS:
         log = _build.build_log(name)
-        assert "sm_90a" in log and "0 bytes spill stores" in log, name
+        spills = [ln for ln in log.splitlines() if "spill stores" in ln]
+        assert "sm_90a" in log and spills, name
+        assert all("0 bytes spill stores" in ln for ln in spills), name
+
+
+def _one_launch(fn, kernel):
+    """fn() puts nothing on the device but ``kernel``, at most once a call
+    (the profiler may miss a launch; the wrapper's count says it ran)."""
+    kernels = device_kernels(fn, 10)
+    assert len(kernels) == 1 and kernel in next(iter(kernels)), kernels
+    assert sum(n for n, _ in kernels.values()) <= 1, kernels
+
+
+def _unaligned(a: np.ndarray, dev):
+    """A contiguous copy of ``a`` on ``dev`` whose data starts 4 bytes
+    past a 16-byte boundary."""
+    flat = torch.empty(a.size + 1, dtype=torch.float32, device=dev)
+    t = flat[1:].view(a.shape)
+    t.copy_(torch.as_tensor(a))
+    assert t.data_ptr() % 16 == 4
+    return t
 
 
 @pytest.mark.parametrize("rows,block,nb,mask", [
     (9, 4096, 1, "float"), (16, 4096, 8, "float"), (16, 4096, 4, "all"),
-    (5, 1000, 3, "bool"), (3, 2048, 2, "none")])
+    (5, 1000, 3, "bool"), (3, 2048, 2, "none"), (16, 4096, 64, "float"),
+    (1, 4096, 2, "bool"), (17, 1000, 3, "float"), (5, 1001, 3, "bool"),
+    (5, 1001, 2, "float"), (17, 4096, 64, "bool"), (12, 2048, 128, "float"),
+    (16, 4096, 64, "copy"), (3, 1001, 3, "copy"),
+    (16, 4096, 2, "copy_unaligned")])
 def test_compaction_kernel_matches_plain(cuda, rows, block, nb, mask):
+    """Blocks of 1001 lanes read the mask one lane at a time (no 4-lane
+    loads); (16, 4096, 64), (17, 4096, 64) and (12, 2048, 128) move 8, 8
+    and 1, and 6 rows a thread (the 8-row build), the others 1-4; the copy
+    (keep=None) of 3 x 3003 floats ends in a tail that is not a 16-byte
+    word, and an unaligned input takes 4-byte words."""
     rng = np.random.default_rng(block + nb)
     pk = rng.normal(size=(rows, nb * block)).astype(np.float32)
     pk[0, 5] = -0.0
@@ -59,17 +90,22 @@ def test_compaction_kernel_matches_plain(cuda, rows, block, nb, mask):
     keep[[5, 6]] = True
     keep = {"float": keep.astype(np.float32), "bool": keep,
             "all": np.ones(nb * block, bool),
-            "none": np.zeros(nb * block, bool)}[mask]
-    pk_t = torch.as_tensor(pk, device=cuda)
-    keep_t = torch.as_tensor(keep, device=cuda)
-    n0 = C.launches
+            "none": np.zeros(nb * block, bool)}.get(mask)
+    pk_t = (_unaligned(pk, cuda) if mask == "copy_unaligned"
+            else torch.as_tensor(pk, device=cuda))
+    keep_t = None if keep is None else torch.as_tensor(keep, device=cuda)
+    n0, c0 = C.launches, C.copy_launches
     out, cnt = C.compact_blocks(pk_t, keep_t, block)
     ref, ref_cnt = C.compact_blocks_ref(pk_t, keep_t, block)
     torch.cuda.synchronize()
-    assert C.launches == n0 + 1
+    copy = keep is None
+    assert (C.launches, C.copy_launches) == (n0 + (not copy), c0 + copy)
     assert _same_bits(out, ref) and torch.equal(cnt, ref_cnt)
-    if mask == "all":
+    if mask in ("all", "copy", "copy_unaligned"):
         assert _same_bits(out, pk_t)
+        assert cnt.tolist() == [block] * nb
+    _one_launch(lambda: C.compact_blocks(pk_t, keep_t, block),
+                "block_copy_kernel" if copy else "compact_kernel")
 
 
 def test_mailbox_kernel_matches_plain(cuda):
@@ -83,6 +119,19 @@ def test_mailbox_kernel_matches_plain(cuda):
     out = C.mailbox(big, offs, M * nb)
     assert C.mailbox_launches == n0 + 1
     assert _same_bits(out, C.mailbox_ref(big, offs, M * nb))
+    # into a NaN-filled out= with two more slots than blocks: the covered
+    # columns are copied, the others keep their NaN, one launch a call
+    nan = lambda: torch.full((16, M * (nb + 2)), float("nan"), device=cuda)
+    offs2 = torch.as_tensor((rng.permutation(nb + 2)[:nb] * M)
+                            .astype(np.int32), device=cuda)
+    out = nan()
+    assert C.mailbox(big, offs2, M * (nb + 2), out=out) is out
+    assert C.mailbox_launches == n0 + 2
+    assert _same_bits(out, C.mailbox_ref(big, offs2, M * (nb + 2),
+                                         out=nan()))
+    assert int(out.isnan().all(0).sum()) == 2 * M
+    _one_launch(lambda: C.mailbox(big, offs2, M * (nb + 2), out=out),
+                "mailbox_kernel")
     # blocks at a negative offset, past the end or at an offset that is
     # not a multiple of 4 are skipped; a 4-aligned offset is copied
     big = torch.as_tensor(rng.normal(size=(3, 5 * M)).astype(np.float32),
@@ -93,6 +142,12 @@ def test_mailbox_kernel_matches_plain(cuda):
     assert _same_bits(out, C.mailbox_ref(big, offs, 5 * M))
     assert _same_bits(out[:, 4:4 + M], big[:, 4 * M:])
     assert not out[:, M + 4:2 * M].any() and not out[:, 3 * M:].any()
+    out = torch.full((3, 5 * M), float("nan"), device=cuda)
+    C.mailbox(big, offs, 5 * M, out=out)
+    assert _same_bits(out, C.mailbox_ref(
+        big, offs, 5 * M, out=torch.full_like(out, float("nan"))))
+    assert out[:, M + 4:2 * M].isnan().all() and out[:, 3 * M:].isnan().all()
+    assert _same_bits(out[:, 2 * M:3 * M], big[:, :M])
 
 
 def _walled_fields(fbc, device, seed=3):

@@ -59,7 +59,7 @@ def test_kernel_hash_covers_included_headers(tmp_path, monkeypatch):
     assert {p.name for p in _build.sources("fused_push2d")} == {
         "fused_push2d.cu", "push_lane.cuh"}
     assert {p.name for p in _build.sources("compact_block")} == {
-        "compact_block.cu", "block_scan.cuh"}
+        "compact_block.cu"}
     assert {p.name for p in _build.sources("mailbox")} == {"mailbox.cu"}
     assert {p.name for p in _build.sources("field_beb")} == {"field_beb.cu"}
 

@@ -131,6 +131,36 @@ def test_mailbox_matches_proto_at_8_blocks():
                           proto_torch.mailbox_np(big, offs, M * nb))
 
 
+def test_mailbox_out_matches_proto_and_keeps_the_rest():
+    """Into a NaN-filled ``out=`` (8 blocks in 10 slots): the covered
+    columns are the JAX mailbox's, bit for bit, and the two uncovered
+    slots keep the sentinel."""
+    rng = np.random.default_rng(5)
+    nb, M, slots = 8, C.MAILBOX_WIDTH, 10
+    n_out = M * slots
+    big = rng.normal(size=(16, M * nb)).astype(np.float32)
+    offs = (rng.permutation(slots)[:nb] * M).astype(np.int32)
+    out_j = np.asarray(proto_jax.mailbox(jnp.asarray(big), jnp.asarray(offs),
+                                         nb, n_out))
+    out = torch.full((16, n_out), float("nan"))
+    got = C.mailbox_ref(torch.from_numpy(big), torch.from_numpy(offs), n_out,
+                        out=out)
+    assert got is out
+    covered = np.zeros(n_out, bool)
+    for o in offs:
+        covered[o:o + M] = True
+    assert covered.sum() == nb * M
+    assert np.array_equal(_bits(out_j[:, covered]),
+                          _bits(out.numpy()[:, covered]))
+    assert np.isnan(out.numpy()[:, ~covered]).all()
+    want = proto_torch.mailbox_np(big, offs, n_out, float("nan"))
+    assert np.array_equal(_bits(want), _bits(out.numpy()))
+    # the wrapper on CPU tensors is the plain version, out= included
+    out2 = torch.full((16, n_out), float("nan"))
+    C.mailbox(torch.from_numpy(big), torch.from_numpy(offs), n_out, out=out2)
+    assert np.array_equal(_bits(out2.numpy()), _bits(want))
+
+
 def _grid_inputs(nb=2):
     pk, keep = grid_torch.inputs(nb)
     return pk, keep, jnp.asarray(pk), jnp.asarray(keep[None, :])
@@ -141,19 +171,51 @@ def _grid_inputs(nb=2):
     ("residency_grid_bench2", "highest"), ("residency_grid_bench2", "split4"),
     ("residency_grid_bench2", "copy")])
 def test_grid_kernels_match_compact_blocks(script, variant):
-    """Every variant of both grid benches is compact_blocks: the copies with
-    an all-true mask, the compactions (plain f32, HIGHEST-precision and
-    four-pass bf16 one-hot dots) with the removal mask; all bit for bit."""
+    """Every variant of both grid benches is compact_blocks: the copies
+    without a mask (keep=None), the compactions (plain f32,
+    HIGHEST-precision and four-pass bf16 one-hot dots) with the removal
+    mask; all bit for bit."""
     pk, keep, pk_j, keep_j = _grid_inputs()
     out_j = np.asarray(jax.jit(_load_make(script)(variant))(pk_j, keep_j))
     copy = variant in (False, "copy")
-    mask = np.ones_like(keep) if copy else keep
     out_t, cnt = C.compact_blocks(torch.from_numpy(pk),
-                                  torch.from_numpy(mask), P)
+                                  None if copy else torch.from_numpy(keep), P)
     assert np.array_equal(_bits(out_j), _bits(out_t.numpy()))
     if copy:
-        assert np.array_equal(out_t.numpy(), pk)
-    assert cnt.tolist() == [int(mask[:P].sum()), int(mask[P:].sum())]
+        assert np.array_equal(_bits(out_t.numpy()), _bits(pk))
+        assert cnt.tolist() == [P, P]
+    else:
+        assert cnt.tolist() == [int(keep[:P].sum()), int(keep[P:].sum())]
+    assert cnt.dtype == torch.int32
+
+
+@pytest.mark.parametrize("block", [1000, 4096])
+@pytest.mark.parametrize("rows", [1, 5, 9, 16])
+def test_compact_plan_serves_every_lane_and_row_once(block, rows):
+    """CUDA block (b, c, g) of the plan serves lanes [1024 c, 1024 (c + 1))
+    and rows [per g, per (g + 1)) of lane block b, cut at the ends: every
+    (block, lane, row) exactly once, no CUDA block idle, at most MAX_ROWS
+    rows a thread; at (16, 64 x 4096) on 132 SMs the grid is at least two
+    waves."""
+    for nb in (1, 3, 64):
+        plan = C.compact_plan(rows, block, nb, 132)
+        nbg, chunks, groups = plan.grid
+        per = plan.rows_per_group
+        assert nbg == nb and 1 <= per <= C.MAX_ROWS
+        served = np.zeros((nb, block, rows), np.int32)
+        for b in range(nb):
+            for c in range(chunks):
+                for g in range(groups):
+                    lanes = slice(C.CHUNK * c, min(C.CHUNK * (c + 1), block))
+                    rws = slice(per * g, min(per * (g + 1), rows))
+                    assert lanes.start < lanes.stop and rws.start < rws.stop
+                    served[b, lanes, rws] += 1
+        assert (served == 1).all()
+    big = C.compact_plan(rows, block, 64 * 4096 // block, 132)
+    if (rows, block) == (16, 4096):
+        assert big.grid == (64, 4, 2) and np.prod(big.grid) >= 2 * 132
+    with pytest.raises(ValueError):
+        C.compact_plan(0, block, 1, 132)
 
 
 def test_plain_compaction_moves_bits_and_any_block_size():
@@ -209,13 +271,18 @@ def test_wrappers_reject_bad_inputs():
         C.mailbox(pk, offs.long(), 512)
     with pytest.raises(ValueError):
         C.mailbox(pk, offs, 514)
+    with pytest.raises(ValueError):
+        C.mailbox(pk, offs, 512, out=torch.zeros((2, 256)))
+    with pytest.raises(TypeError):
+        C.mailbox(pk, offs, 512, out=torch.zeros((2, 512)).double())
 
 
 @pytest.mark.parametrize("script", [proto_torch, grid_torch])
 def test_script_main_on_the_cpu(script):
     res = script.main(["--cpu"])
     checks = [v for v in res.values() if isinstance(v, dict)]
-    assert len(checks) == 2 and all(c["bit_exact"] for c in checks)
+    assert len(checks) == {proto_torch: 3, grid_torch: 2}[script]
+    assert all(c["bit_exact"] for c in checks)
     assert res["device"] == "cpu"
 
 

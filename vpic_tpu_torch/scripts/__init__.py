@@ -70,6 +70,11 @@ def kernel_device_ms(fn, kernel: str, n: int) -> float:
                if kernel in name)
 
 
+def device_ms(fn, n: int) -> float:
+    """Device ms per fn() call in every kernel, copy and fill it launches."""
+    return sum(ms for _, ms in device_kernels(fn, n).values())
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """True when two float32 tensors hold the same bits."""
     return a.shape == b.shape and torch.equal(
