@@ -30,17 +30,23 @@ Phases, each of which must pass (any failure exits non-zero):
      2 species of 2,097,152 particles) after its first rebucket, the 3-D
      push kernel with its residency outbox against its plain version (with
      its global-path deposit rounds, and its device time as in phase 3),
-     then the merge kernel against its plain version on that push's
-     exchange plan (bit for bit); both timed with CUDA events;
+     then the merge kernel (one launch for both species, in place, as the
+     step runs it) against its plain version on clones of that push's
+     lanes and its exchange plan (bit for bit); both timed with CUDA
+     events and the kernel's device time with torch.profiler, the input
+     restored before each call; its bound written to new arrays and the
+     least an in-place merge of these inputs must move;
   7. 3-D reference: a 16^3 harris deck run 10 steps on the card and on the
      CPU must agree;
   8. 3-D run: the full-width 3-D harris deck through the residency step for
      100 steps (bench.py --deck harris3d's widths and steps); both 3-D
-     kernels must have been launched (the push once a step for both
-     species, the merge once a step per species), no streak left
-     unfinished, drift below 1e-3; prints the run's global-path share;
-     then the kernel against its plain version again on the residency
-     lanes and home maps the run left;
+     kernels must have been launched (the push and the merge once a step
+     for both species), no streak left unfinished, drift below 1e-3, and
+     the species tensors must be the same storage after the run; prints the
+     run's global-path share; then the merge kernel's launches and device
+     time per step over 10 more steps (torch.profiler), and the push kernel
+     against its plain version again on the residency lanes and home maps
+     the run left;
   9. residency prototypes: the entry points vpic_tpu_torch.scripts.
      residency_proto and residency_grid_bench (their main()), which hold the
      compaction kernel against numpy and its plain version bit for bit with
@@ -291,6 +297,22 @@ def check_run(torch, sim, state, e0, what):
     return drift, unfinished
 
 
+def merge_per_step(torch, step, state, n=10):
+    """(merge kernel launches, its device ms) per step over n more steps of
+    ``step`` from ``state``, from torch.profiler, and the state after
+    them."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            state = step(state)
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and "merge_kernel" in e.key]
+    return (sum(e.count for e in hits) / n,
+            sum(e.device_time_total for e in hits) / 1e3 / n, state)
+
+
 def residency_prototypes(counters, card):
     """Phase 9: the entry points scripts.residency_proto and
     residency_grid_bench, each run with the kernel counts set to 0 just
@@ -394,7 +416,7 @@ def main():
     from vpic_tpu_torch.ops import interp as I
     from vpic_tpu_torch.ops import residency as RES
     from vpic_tpu_torch.scripts import card as card_and_power
-    from vpic_tpu_torch.scripts import cuda_ms
+    from vpic_tpu_torch.scripts import cuda_ms, kernel_device_ms
     from vpic_tpu_torch.scripts import field_fuse_proto as RF
     from vpic_tpu_torch.utils import push_timing as PT
 
@@ -564,42 +586,72 @@ def main():
     if bool(overflow):
         fail("3-D: the first exchange plan overflows (the step would "
              "rebucket), so the merge would not run")
-    mk = RES.merge_p(sk, em_k, compact, starts_j, a_j)
-    mr = RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
+    src = PT.clone_species(sk)          # the pushed lanes, kept
+    ka, kb = PT.clone_species(sk), PT.clone_species(sk)
+    mk = RES.merge_p(ka, em_k, compact, starts_j, a_j, ka)
+    mr = RES.merge_p_ref(kb, em_k, compact, starts_j, a_j, kb)
     torch.cuda.synchronize()
     merge_err = 0.0
-    for k, (a, b) in enumerate(zip(mk, mr)):
+    changed = 0
+    for k, (a, b, x0) in enumerate(zip(mk, mr, src)):
+        moved = a.live != x0.live
         for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w"):
             x, y = getattr(a, n), getattr(b, n)
             merge_err = max(merge_err, float(
                 (x.double() - y.double()).abs().max()))
             if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
                 fail(f"merge species {k}.{n}: kernel differs from plain")
-        if not torch.equal(a.live, b.live) or int(a.np) != int(b.np):
+            moved |= x.view(torch.int32) != getattr(x0, n).view(torch.int32)
+        if not torch.equal(a.live, b.live) or int(a.np) != int(b.np) or \
+                int(a.np) != int(a.live.sum()):
             fail(f"merge species {k}: live lanes differ")
-    routed = int(stats[0])
-    print(f"compare: merge kernel == plain version in every lane, bit for "
-          f"bit ({routed} rows routed, {int(a_j.sum())} placed)")
-    merge = lambda: RES.merge_p(sk, em_k, compact, starts_j, a_j)
-    merge_ref = lambda: RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
+        changed += int(moved.sum())
+    routed, placed = int(stats[0]), int(a_j.sum())
+    print(f"compare: merge kernel in place == plain version in every lane, "
+          f"bit for bit ({routed} rows routed, {placed} placed, {changed} "
+          f"of {slots} slots changed)")
+    work = PT.clone_species(sk)
+
+    def restore():
+        for w, x0 in zip(work, src):
+            for n in FP3.LANE_FIELDS:
+                getattr(w, n).copy_(getattr(x0, n))
+
+    merge = lambda: RES.merge_p(work, em_k, compact, starts_j, a_j, work)
+    merge_ref = lambda: RES.merge_p_ref(work, em_k, compact, starts_j, a_j,
+                                        work)
     merge_ms, merge_plain, merge_ms2, merge_plain2 = (
-        cuda_ms(fn, PT.REPS) for fn in (merge, merge_ref, merge, merge_ref))
-    print(f"timing ({card}): merge kernel {merge_ms:.4f} / {merge_ms2:.4f} "
-          f"ms, plain {merge_plain:.4f} / {merge_plain2:.4f} ms per merge "
-          f"of both species (CUDA events, best of 3 windows of {PT.REPS}, "
-          "kernel-plain-kernel-plain)")
-    # bytes: live + emit per slot, keepers' 8 words read, newcomers' 8
+        cuda_ms(fn, PT.REPS, setup=restore)
+        for fn in (merge, merge_ref, merge, merge_ref))
+    merge_dev = kernel_device_ms(merge, "merge_kernel", PT.REPS,
+                                 setup=restore)
+    # bytes written to new arrays (the bound row 3 has kept since it was
+    # ported): live + emit per slot, keepers' 8 words read, newcomers' 8
     # words read, starts and counts, every slot's 8 words + live written
     keepers = sum(int((s.live & ~e).sum()) for s, e in zip(sk, em_k))
-    nbytes = (slots * 2 + keepers * 32 + int(a_j.sum()) * 32
-              + 8 * a_j.shape[0] + slots * 33)
+    nbytes = (slots * 2 + keepers * 32 + placed * 32 + 8 * a_j.shape[0]
+              + slots * 33)
     bms, bby = bound_ms(nbytes, 0)
+    # in place, the least: the marks of every slot, 8 words read and 8
+    # words + live written per slot that changes, the newcomers' 8 words,
+    # starts and counts
+    inplace = slots * 2 + changed * 65 + placed * 32 + 8 * a_j.shape[0]
+    ibms, _ = bound_ms(inplace, 0)
+    print(f"timing ({card}): merge kernel {merge_ms:.4f} / {merge_ms2:.4f} "
+          f"ms, plain {merge_plain:.4f} / {merge_plain2:.4f} ms per merge "
+          f"of both species (CUDA events around each call, input restored "
+          f"before it, best of 3 windows of {PT.REPS}, "
+          "kernel-plain-kernel-plain); kernel device time "
+          f"{merge_dev:.5f} ms (torch.profiler, {PT.REPS} merges); bound "
+          f"{bms:.5f} ms written to new arrays ({nbytes / 1e6:.1f} MB, "
+          f"{100 * bms / merge_dev:.1f} % of it), {ibms:.5f} ms in place "
+          f"({inplace / 1e6:.1f} MB, {100 * ibms / merge_dev:.1f} %)")
     results[RES.KERNEL] = dict(
         name=RES.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/merge_p.cu",
         replaces="vpic_tpu/ops/residency.py:232", max_abs_err=merge_err,
         ms=merge_ms, plain_ms=merge_plain, bound_ms=bms, bound_by=bby,
         library_ms=None)
-    del ker, sk, mk, mr, compact, species, fcoef
+    del ker, sk, mk, mr, ka, kb, src, work, compact, species, fcoef
 
     # --- phase 7: small 3-D deck against the CPU plain path ---
     small_reference(torch, harris, harris.HarrisParams(
@@ -609,9 +661,14 @@ def main():
     # --- phase 8: the 3-D residency path, 100 steps ---
     n_particles = sum(int(sp.np) for sp in state.species)
     e0 = sim.energies(state).double().cpu().numpy()
+    ptrs = [[getattr(sp, n).data_ptr() for n in FP3.LANE_FIELDS]
+            for sp in state.species]
     FP3.deposits = None
     state, elapsed, launches = run_steps(torch, sim, state, N_STEPS_3D,
                                          counters)
+    if ptrs != [[getattr(sp, n).data_ptr() for n in FP3.LANE_FIELDS]
+                for sp in state.species]:
+        fail("3-D run: the species tensors changed storage")
     drift, unfinished = check_run(torch, sim, state, e0, "3-D run")
     global_share(FP3, f"{N_STEPS_3D} steps")
     rebuckets = int(state.diag["_res_rebuckets"])
@@ -627,7 +684,7 @@ def main():
     nsp = len(state.species)
     if launches[FP3.KERNEL] < N_STEPS_3D:
         fail(f"3-D push kernel launched {launches[FP3.KERNEL]} times")
-    if launches[RES.KERNEL] != nsp * (N_STEPS_3D - rebuckets) or \
+    if launches[RES.KERNEL] != N_STEPS_3D - rebuckets or \
             launches[RES.KERNEL] == 0:
         fail(f"merge kernel launched {launches[RES.KERNEL]} times with "
              f"{rebuckets} rebuckets in {N_STEPS_3D} steps")
@@ -635,13 +692,20 @@ def main():
         fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps")
     results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
+    print("run 3-D: the species tensors kept their storage over the "
+          f"{N_STEPS_3D} steps")
+    merge_calls, merge_dev, state = merge_per_step(torch, sim.make_step(),
+                                                   state)
+    print(f"run 3-D: merge kernel {merge_calls:.2f} launches and "
+          f"{merge_dev:.5f} device ms a step (torch.profiler, 10 more "
+          f"steps; {card})")
     # the residency lanes and home maps the run left, kernel against plain
     err3, _ = compare_push3d(
         torch, PT, FP3, g, [RES.slice_species(sp, E)
                             for sp, E in zip(state.species, exts)],
         [state.diag[f"_chart_home{k}"] for k in range(nsp)],
         I.load_interpolator(state.fields, g), qms,
-        f"{N_STEPS_3D} steps after the first rebucket")
+        f"{N_STEPS_3D + 10} steps after the first rebucket")
     results[FP3.KERNEL]["max_abs_err"] = max(
         results[FP3.KERNEL]["max_abs_err"], err3)
     del sim, state

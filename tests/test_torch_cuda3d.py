@@ -9,7 +9,8 @@ Tolerances: as tests/test_torch_cuda.py for the lanes (offsets and momenta
 3e-5, voxels equal except at most 1 lane in 1e5 within 1e-5 of a face, the
 accumulator 1e-5 max|acc|); emit marks and outbox rows equal for the lanes
 and blocks whose voxels agree, outbox floats to 3e-5, ``ores`` equal; the
-merge bit for bit in every lane.  Cases that drive the deposits' global
+merge (one launch for every species, in place or into new tensors) bit for
+bit in every lane.  Cases that drive the deposits' global
 path (lanes outside their home brick, no home map, wraps across the
 periodic faces of the edge bricks) are held to the same tolerances, and
 the kernel's deposit count (FP3.deposits) to what the case implies."""
@@ -135,19 +136,29 @@ def _deposits():
     return tuple(FP3.deposits.tolist())
 
 
-def _merge_both(sk, em_k, obx_k, homes, g):
-    _, spid, usable = RES.static_layout([sp.capacity for sp in sk])
-    free_j = RES.block_counts(sk, em_k)
-    compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
-        obx_k, torch.cat(homes), spid, usable, free_j, g)
-    mk = RES.merge_p(sk, em_k, compact, starts_j, a_j)
-    mr = RES.merge_p_ref(sk, em_k, compact, starts_j, a_j)
-    torch.cuda.synchronize()
+def _assert_merged_equal(mk, mr):
     for a, b in zip(mk, mr):
         for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w"):
             assert torch.equal(getattr(a, n).view(torch.int32),
                                getattr(b, n).view(torch.int32)), n
-        assert torch.equal(a.live, b.live) and int(a.np) == int(b.np)
+        assert torch.equal(a.live, b.live)
+        assert int(a.np) == int(b.np) == int(a.live.sum())
+
+
+def _merge_both(sk, em_k, obx_k, homes, g):
+    """The kernel in place on a clone of the pushed lanes (one launch for
+    every species), the plain version in place on another."""
+    _, spid, usable = RES.static_layout([sp.capacity for sp in sk])
+    free_j = RES.block_counts(sk, em_k)
+    compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
+        obx_k, torch.cat(homes), spid, usable, free_j, g)
+    ka, kb = _clone(sk), _clone(sk)
+    before = RES.launches
+    mk = RES.merge_p(ka, em_k, compact, starts_j, a_j, ka)
+    assert RES.launches == before + 1
+    mr = RES.merge_p_ref(kb, em_k, compact, starts_j, a_j, kb)
+    torch.cuda.synchronize()
+    _assert_merged_equal(mk, mr)
     return bool(overflow), int(a_j.sum())
 
 
@@ -273,43 +284,72 @@ def test_kernels_at_edge_bricks(cuda, axis):
         assert 0 < glob < every
 
 
-def test_merge_kernel_every_block_kind(cuda):
-    """Dead blocks with junk lanes, blocks whose keepers stay, move a
-    little or churn, with and without newcomers, and a compact window that
-    runs past the compact rows."""
+@pytest.mark.parametrize("dest", ["aliased", "new"])
+def test_merge_kernel_every_block_kind(cuda, dest):
+    """Two species in one launch: dead blocks with junk lanes (and a -0.0
+    that stays), blocks whose keepers stay (with a -0.0 the merge turns to
+    +0.0), move a little or churn, with and without newcomers, dead lanes
+    already zero, and a compact window that runs past the compact rows;
+    merged in place or into new tensors."""
     rng = np.random.default_rng(5)
-    N = 4 * 1024
     t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=cuda)
-    live = np.zeros((4, 1024), bool)
-    live[1, :700] = True
-    live[2, :900] = True
-    live[3, :1000] = True
-    emit = np.zeros((4, 1024), bool)
-    emit[1, 650:700] = True
-    emit[2, rng.choice(900, 60, False)] = True
-    emit[3, :400] = True
-    sp = vt.SpeciesState(
-        dx=t(rng.normal(size=N)), dy=t(rng.normal(size=N)),
-        dz=t(rng.normal(size=N)), i=t(rng.integers(1, 4000, N), torch.int32),
-        ux=t(rng.normal(size=N)), uy=t(rng.normal(size=N)),
-        uz=t(rng.normal(size=N)), w=t(rng.uniform(0.5, 1.5, N)),
-        live=t(live.reshape(-1), torch.bool), np=t(live.sum(), torch.int32))
-    sp.dx[5] = -0.0
+    species, emits = [], []
+    for nb in (4, 3):
+        N = nb * 1024
+        live = np.zeros((nb, 1024), bool)
+        live[1, :700] = True
+        live[2, :900] = True
+        emit = np.zeros((nb, 1024), bool)
+        emit[1, 650:700] = True
+        emit[2, rng.choice(900, 60, False)] = True
+        if nb > 3:
+            live[3, :1000] = True
+            emit[3, :400] = True
+        f = lambda: rng.normal(size=(nb, 1024))
+        rows = {n: f() for n in ("dx", "dy", "dz", "ux", "uy", "uz")}
+        rows["w"] = rng.uniform(0.5, 1.5, (nb, 1024))
+        for n in rows:                  # block 2's dead lanes already zero
+            rows[n][2, 900:] = 0.0
+        rows["dx"][0, 5] = -0.0
+        rows["w"][0, 9] = -0.0
+        rows["ux"][1, 3] = -0.0
+        vox = rng.integers(1, 4000, (nb, 1024))
+        vox[2, 900:] = 0
+        species.append(vt.SpeciesState(
+            **{n: t(v.reshape(-1)) for n, v in rows.items()},
+            i=t(vox.reshape(-1), torch.int32),
+            live=t(live.reshape(-1), torch.bool),
+            np=t(live.sum(), torch.int32)))
+        emits.append(t(emit.reshape(-1), torch.bool))
     M = 600
     compact = FP3.Outbox(f=t(rng.normal(size=(7, M))),
                          vox=t(rng.integers(1, 4000, M), torch.int32),
                          valid=torch.ones(M, dtype=torch.bool, device=cuda))
-    starts = t([0, 3, 200, 560], torch.int32)
-    a = t([0, 40, 128, 100], torch.int32)
-    em = t(emit.reshape(-1), torch.bool)
-    mk = RES.merge_p([sp], [em], compact, starts, a)[0]
-    mr = RES.merge_p_ref([sp], [em], compact, starts, a)[0]
+    starts = t([0, 3, 200, 560, 0, 100, 590], torch.int32)
+    a = t([0, 40, 128, 100, 0, 7, 30], torch.int32)
+    ka, kb = _clone(species), _clone(species)
+    out = ka if dest == "aliased" else [
+        sp.replace(**{n: torch.full_like(getattr(sp, n), v) for n, v in
+                      (("dx", float("nan")), ("dy", 1.0), ("dz", -0.0),
+                       ("i", -3), ("ux", 2.0), ("uy", 3.0), ("uz", 4.0),
+                       ("w", float("inf")), ("live", True))})
+        for sp in ka]
+    before = RES.launches
+    mk = RES.merge_p(ka, emits, compact, starts, a, out)
+    assert RES.launches == before + 1
+    mr = RES.merge_p_ref(kb, emits, compact, starts, a, kb)
     torch.cuda.synchronize()
-    for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w"):
-        assert torch.equal(getattr(mk, n).view(torch.int32),
-                           getattr(mr, n).view(torch.int32)), n
-    assert torch.equal(mk.live, mr.live)
-    assert torch.equal(mk.dx[:1024], sp.dx[:1024])      # the dead block
+    _assert_merged_equal(mk, mr)
+    for o, m in zip(out, mk):
+        assert m.dx is o.dx and m.live is o.live
+    dead = mk[0].dx[:1024]                           # the dead blocks
+    assert torch.equal(dead.view(torch.int32),
+                       species[0].dx[:1024].view(torch.int32))
+    assert int(mk[0].w[9].view(torch.int32)) == 0
+    assert int(mk[0].ux[1024 + 3].view(torch.int32)) == 0
+    if dest == "new":                                # the input is untouched
+        for n in FP3.LANE_FIELDS:
+            assert torch.equal(getattr(ka[0], n), getattr(species[0], n))
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -338,18 +378,33 @@ def test_wrappers_reject_bad_inputs(cuda):
     _, spid, usable = RES.static_layout([sp.capacity for sp in sk])
     compact, starts_j, a_j, _, _ = RES.plan_exchange(
         k[3], torch.cat(homes), spid, usable, RES.block_counts(sk, em), g)
+    launched = RES.launches
     with pytest.raises(TypeError):
-        RES.merge_p(sk, em, compact, starts_j.long(), a_j)
+        RES.merge_p(sk, em, compact, starts_j.long(), a_j, sk)
     with pytest.raises(ValueError):
         RES.merge_p(sk, em, compact._replace(vox=compact.vox.cpu()),
-                    starts_j, a_j)
+                    starts_j, a_j, sk)
+    short = [sp.replace(**{n: getattr(sp, n)[:-1024] for n in
+                           FP3.LANE_FIELDS}) for sp in sk]
     with pytest.raises(ValueError):
-        RES.merge_p([sp.replace(**{n: getattr(sp, n)[:-1024] for n in
-                                   FP3.LANE_FIELDS}) for sp in sk],
-                    em, compact, starts_j, a_j)
+        RES.merge_p(short, em, compact, starts_j, a_j, short)
     with pytest.raises(ValueError):
         RES.merge_p([sk[0].replace(dx=sk[0].dx[:-1])], em[:1], compact,
-                    starts_j, a_j)
+                    starts_j, a_j, sk[:1])
+    with pytest.raises(ValueError):                  # one species too few
+        RES.merge_p(sk, em, compact, starts_j, a_j, sk[:1])
+    N = sk[0].capacity
+    buf = torch.empty(2 * N, device=cuda)
+    buf[:N] = sk[0].dx
+    with pytest.raises(ValueError):                  # overlaps its input
+        RES.merge_p([sk[0].replace(dx=buf[:N])] + sk[1:], em, compact,
+                    starts_j, a_j, [sk[0].replace(dx=buf[1024:N + 1024])]
+                    + sk[1:])
+    with pytest.raises(ValueError):                  # not 16-byte aligned
+        RES.merge_p(sk, em, compact, starts_j, a_j,
+                    [sk[0].replace(dx=torch.empty(N + 1, device=cuda)[1:])]
+                    + sk[1:])
+    assert RES.launches == launched                  # none was launched
 
 
 @pytest.mark.parametrize("residency", [True, False])

@@ -1,9 +1,10 @@
 """The port's 3-D step against vpic_tpu, on the CPU: a 16^3 harris deck
 for 10 steps against vpic_tpu's general path, and the outbox-overflow deck
 of tests/test_residency.py:66-101.  Also: the entry points default to the
-card, the residency step reads the device once per step and no more, the
-step goes through both kernel wrappers, and the per-step-sort path agrees
-with the residency path.
+card, the residency step reads the device once per step and no more, its
+rebucket copies into the state's storage, the step goes through both
+kernel wrappers, and the per-step-sort path agrees with the residency
+path.
 
 Tolerances: live counts and voxel multisets equal; the harris fields
 5e-7 + 1e-5 max|a| and energies 1e-6 of their sum (test_pallas.py:88-94);
@@ -115,6 +116,26 @@ def test_outbox_overflow_rebuckets_and_conserves():
     lj, lt = np.asarray(s_j.species[0].live), np_(s.species[0].live)
     assert np.array_equal(np.sort(np.asarray(s_j.species[0].i)[lj]),
                           np.sort(np_(s.species[0].i)[lt]))
+
+
+def test_outbox_overflow_rebucket_copies_into_the_state():
+    """The rebucket path writes its sort into the state's extent slices:
+    every lane tensor keeps its storage, and every particle, its weight and
+    the live count (np) are kept through the rebuckets."""
+    st = _beam_deck(vt, device="cpu")
+    s = st.initialize()
+    sp0 = s.species[0]
+    ptrs = [getattr(sp0, n).data_ptr() for n in FP3.LANE_FIELDS]
+    w0 = float(sp0.w[sp0.live].double().sum())
+    step = st.make_step()
+    for _ in range(3):
+        s = step(s)
+        sp = s.species[0]
+        assert [getattr(sp, n).data_ptr() for n in FP3.LANE_FIELDS] == ptrs
+        assert int(sp.np) == int(sp.live.sum()) == 1024
+        assert float(sp.w[sp.live].double().sum()) == w0
+        assert bool((sp.i[sp.live] > 0).all())
+    assert int(s.diag["_res_rebuckets"]) >= 1
 
 
 def test_residency_step_reads_the_device_once(monkeypatch):

@@ -2,8 +2,10 @@
 static layout helpers, block_counts, plan_exchange and any_misplaced equal
 to the JAX package's on the crafted inputs of tests/test_residency.py and on
 random ones, and merge_p_ref equal to the Pallas merge (interpret mode) in
-every lane, dead lanes included.  All of it is integer routing and pure data
+every lane, dead lanes included, both into new tensors and in place.  All of it is integer routing and pure data
 movement, so every tolerance is zero."""
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -194,13 +196,30 @@ def test_block_counts_and_misplaced_match():
     assert not bool(RESJ.any_misplaced(fixed_j, em_j, hj, gj))
 
 
-def _merge_both(arrs_list, emits, compact, starts, a):
+def _dest(sps_t, dest):
+    """The merge's destination: the input species themselves ("aliased", as
+    the step merges in place) or new tensors filled with junk ("new"), so
+    that every slot must be written."""
+    if dest == "aliased":
+        return list(sps_t)
+    junk = {"live": True, "i": -7}
+    return [sp.replace(**{n: torch.full_like(getattr(sp, n),
+                                             junk.get(n, float("nan")))
+                          for n in FIELDS}) for sp in sps_t]
+
+
+def _merge_both(arrs_list, emits, compact, starts, a, dest):
+    """vpic_tpu's merge, run and read first, then the port's plain version
+    into ``dest`` (see _dest)."""
     sps_j, sps_t = zip(*[_pair(a_) for a_ in arrs_list])
     out_j = RESJ.merge_p(list(sps_j),
                          [jnp.asarray(e.astype(np.float32)) for e in emits],
                          jnp.asarray(compact), jnp.asarray(starts),
                          jnp.asarray(a))
+    out_j = [SimpleNamespace(**{n: np.asarray(getattr(o, n))
+                                for n in FIELDS + ("np",)}) for o in out_j]
     M = compact.shape[1] - 128          # JAX's compact carries 128 pad cols
+    out = _dest(sps_t, dest)
     out_t = RES.merge_p(list(sps_t), [torch.as_tensor(e) for e in emits],
                         FP3.Outbox(
                             f=torch.as_tensor(compact[[0, 1, 2, 4, 5, 6, 7],
@@ -208,7 +227,9 @@ def _merge_both(arrs_list, emits, compact, starts, a):
                             vox=torch.as_tensor(
                                 compact[3, :M].astype(np.int32)),
                             valid=torch.ones(M, dtype=torch.bool)),
-                        torch.as_tensor(starts), torch.as_tensor(a))
+                        torch.as_tensor(starts), torch.as_tensor(a), out)
+    for o, d in zip(out_t, out):
+        assert all(getattr(o, n) is getattr(d, n) for n in FIELDS)
     return out_j, out_t
 
 
@@ -220,7 +241,11 @@ def _assert_merge_equal(out_j, out_t):
             assert np.array_equal(x, y), n
 
 
-def test_merge_p_ref_matches_crafted():
+DESTS = ["new", "aliased"]
+
+
+@pytest.mark.parametrize("dest", DESTS)
+def test_merge_p_ref_matches_crafted(dest):
     """The inputs of test_residency.py:175-223."""
     N = 2048
     rng = np.random.default_rng(0)
@@ -239,10 +264,12 @@ def test_merge_p_ref_matches_crafted():
     compact[7, :200] = 1.0
     starts = np.asarray([3, 150], np.int32)
     a = np.asarray([5, 6], np.int32)
-    _assert_merge_equal(*_merge_both([arrs], [emit], compact, starts, a))
+    _assert_merge_equal(*_merge_both([arrs], [emit], compact, starts, a,
+                                     dest))
 
 
-def test_merge_p_ref_matches_every_block_kind():
+@pytest.mark.parametrize("dest", DESTS)
+def test_merge_p_ref_matches_every_block_kind(dest):
     """Two species and every kind of block the Pallas merge branches on: a
     dead block (no keepers, no newcomers; its dead lanes hold junk), one
     whose keepers do not move, one whose keepers move a little (banded) and
@@ -275,7 +302,8 @@ def test_merge_p_ref_matches_every_block_kind():
     compact[3, :M] = rng.integers(1, 4000, M)
     starts = np.asarray([0, 3, 200, 333, 700, 801, 990], np.int32)
     a = np.asarray([0, 40, 0, 128, 0, 17, 34], np.int32)
-    out_j, out_t = _merge_both(arrs_list, emits, compact, starts, a)
+    out_j, out_t = _merge_both(arrs_list, emits, compact, starts, a,
+                               dest)
     _assert_merge_equal(out_j, out_t)
     # the dead block kept its rows, with w zeroed on dead lanes
     assert torch.equal(out_t[1].dx[:1024],
@@ -283,8 +311,9 @@ def test_merge_p_ref_matches_every_block_kind():
     assert not out_t[1].w[:1024].any() and not out_t[1].live[:1024].any()
 
 
+@pytest.mark.parametrize("dest", DESTS)
 @pytest.mark.parametrize("seed", [1, 2])
-def test_merge_p_ref_matches_random(seed):
+def test_merge_p_ref_matches_random(seed, dest):
     rng = np.random.default_rng(seed)
     g = _grids()[1]
     homes = rng.integers(0, 8, 6).astype(np.int32)
@@ -295,16 +324,44 @@ def test_merge_p_ref_matches_random(seed):
     compact[3, :M] = rng.integers(1, 4000, M)
     starts = np.sort(rng.integers(0, M - 128, 6)).astype(np.int32)
     a = rng.integers(0, 128, 6).astype(np.int32)
-    out_j, out_t = _merge_both([arrs], [emit], compact, starts, a)
+    out_j, out_t = _merge_both([arrs], [emit], compact, starts, a, dest)
     _assert_merge_equal(out_j, out_t)
 
 
 def test_slice_and_join():
+    """The step's extent slice is a view of the state, and the rebucket's
+    copy writes its sorted extent into that view: the state's tensors take
+    the sort, the dead capacity tail is untouched."""
     rng = np.random.default_rng(2)
     arrs, _ = _layout_species(rng, _grids()[1], 4096, np.arange(4))
     _, sp = _pair(arrs)
     spE = RES.slice_species(sp, 2048)
     assert spE.capacity == 2048 and spE.dx.data_ptr() == sp.dx.data_ptr()
-    back = RES.join_species(spE.replace(dx=spE.dx + 1.0), sp, 2048)
-    assert torch.equal(back.dx[:2048], sp.dx[:2048] + 1.0)
-    assert torch.equal(back.dx[2048:], sp.dx[2048:])
+    tail = {n: getattr(sp, n)[2048:].clone() for n in FIELDS}
+    src = spE.replace(**{n: getattr(spE, n).clone() for n in FIELDS})
+    src = src.replace(dx=src.dx + 1.0, live=~src.live,
+                      np=torch.tensor(7, dtype=torch.int32))
+    back = RES.copy_species(spE, src)
+    assert back.dx.data_ptr() == sp.dx.data_ptr() and int(back.np) == 7
+    for n in FIELDS:
+        assert torch.equal(getattr(sp, n)[:2048], getattr(src, n)), n
+        assert torch.equal(getattr(sp, n)[2048:], tail[n]), n
+
+
+def test_merge_p_refuses_a_wrong_destination():
+    """One destination per species, with the species' lane count."""
+    rng = np.random.default_rng(4)
+    arrs, emit = _layout_species(rng, _grids()[1], 2048, np.arange(2))
+    _, sp = _pair(arrs)
+    compact = FP3.Outbox(f=torch.zeros((7, 4)),
+                         vox=torch.zeros(4, dtype=torch.int32),
+                         valid=torch.zeros(4, dtype=torch.bool))
+    starts = torch.zeros(2, dtype=torch.int32)
+    args = ([sp], [torch.as_tensor(emit)], compact, starts, starts)
+    with pytest.raises(ValueError):
+        RES.merge_p(*args, [])
+    with pytest.raises(ValueError):
+        RES.merge_p(*args, [RES.slice_species(sp, 1024)])
+    [out] = RES.merge_p(*args, [sp])
+    assert int(out.np) == int(out.live.sum()) == int(arrs["live"].sum()
+                                                      - emit.sum())

@@ -446,7 +446,11 @@ class Simulation:
         """The step: the push of every species with its sort, accumulator
         unload, advance_b / advance_e / advance_b, then the cleaners on
         their cadence.  The step updates the state's field tensors in place
-        and returns the new SimState.
+        and returns the new SimState.  The residency step updates the
+        species tensors in place too, on both devices: the merge writes
+        into them and a rebucket copies its sort into them, so they are the
+        same storage after every step.  The other paths' sorts return new
+        species tensors.
 
         2-D (nz == 1): a bucket sort every pallas_sort_interval steps and
         the 2-D push kernel (fused_push_multi).  3-D: with residency, the
@@ -529,16 +533,23 @@ class Simulation:
             compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
                 obx, homes_cat, res_spid, res_usable, free_j, g)
             misplaced = RES.any_misplaced(species, emits, homes, g)
+            # both branches write into the state's extent slices, so the
+            # species tensors stay the same storage from step to step
+            dst = [RES.slice_species(sp, res_exts[k])
+                   for k, sp in enumerate(sp_full)]
             # the step's one host read: rebucket (emitted lanes are still
             # resident, so nothing is lost) or merge
             self.host_syncs += 1
             if bool(overflow | (ores > 0) | misplaced):
                 species, homes = sort_res(species)
+                species = [RES.copy_species(d, s)
+                           for d, s in zip(dst, species)]
                 diag["_res_rebuckets"] = diag["_res_rebuckets"] + 1
             else:
-                species = RES.merge_p(species, emits, compact, starts_j, a_j)
-            species = [RES.join_species(sE, sF, res_exts[k])
-                       for k, (sE, sF) in enumerate(zip(species, sp_full))]
+                species = RES.merge_p(species, emits, compact, starts_j, a_j,
+                                      dst)
+            species = [sF.replace(np=sE.np)
+                       for sE, sF in zip(species, sp_full)]
             for k in range(nsp):
                 diag[f"_chart_home{k}"] = homes[k]
             diag["_res_valid"] = True

@@ -11,9 +11,11 @@ brick sort with ``slack`` empty blocks per brick, and migrate incrementally:
   destination bricks' blocks by free space;
 * :func:`merge_p` drops the emitted lanes, compacts each block's keepers in
   lane order and appends the routed newcomers, so the species arrays are
-  complete at every step boundary.  On CUDA tensors it launches
-  ``csrc/merge_p.cu``; on CPU tensors it runs the plain version
-  ``merge_p_ref``.  It never falls back from one to the other.
+  complete at every step boundary.  It writes into destination species that
+  may be its input (the step merges in place into the state's extent
+  slices).  On CUDA tensors it launches ``csrc/merge_p.cu`` once for every
+  species; on CPU tensors it runs the plain version ``merge_p_ref``.  It
+  never falls back from one to the other.
 
 When the exchange would overflow (a brick's inflow exceeds its free slots,
 or more rows are routed than the compact bound), when a leaver exceeded the
@@ -38,7 +40,8 @@ import torch
 from ..grid import Grid
 from ..state import SpeciesState
 from . import _build
-from .fused_push import _check, _round_up, packed_src_sort
+from .fused_push import (_check, _round_up, c_array, launch_plan,
+                         packed_src_sort, species_groups)
 from .fused_push3d import BLOCK, LANE_FIELDS, OUT_CAP, Outbox, brick_of, \
     nbricks
 
@@ -90,13 +93,13 @@ def slice_species(sp: SpeciesState, E: int) -> SpeciesState:
     return sp.replace(**{n: getattr(sp, n)[:E] for n in LANE_FIELDS})
 
 
-def join_species(spE: SpeciesState, sp_full: SpeciesState,
-                 E: int) -> SpeciesState:
-    """Reattach the untouched dead capacity tail (new tensors); ``np``
-    comes from spE."""
-    return sp_full.replace(
-        **{n: torch.cat([getattr(spE, n), getattr(sp_full, n)[E:]])
-           for n in LANE_FIELDS}, np=spE.np)
+def copy_species(dst: SpeciesState, src: SpeciesState) -> SpeciesState:
+    """Copies src's lane fields into dst's tensors (the rebucket's sorted
+    extent into the state's slice, E slots a field); returns dst with
+    src's np."""
+    for n in LANE_FIELDS:
+        getattr(dst, n).copy_(getattr(src, n))
+    return dst.replace(np=src.np)
 
 
 def block_counts(sps: Sequence[SpeciesState], emits,
@@ -213,14 +216,31 @@ def any_misplaced(sps: Sequence[SpeciesState], emits, homes, g: Grid,
     return out
 
 
+def _check_out(sps: Sequence[SpeciesState], out: Sequence[SpeciesState],
+               block: int):
+    if len(out) != len(sps):
+        raise ValueError(f"merge_p: {len(out)} destination species for "
+                         f"{len(sps)}")
+    for k, (sp, o) in enumerate(zip(sps, out)):
+        if sp.capacity % block:
+            raise ValueError(f"species[{k}] capacity {sp.capacity} is not a "
+                             f"multiple of {block}")
+        if o.capacity != sp.capacity:
+            raise ValueError(f"out[{k}] has {o.capacity} lanes, species[{k}] "
+                             f"{sp.capacity}")
+
+
 def merge_p_ref(sps: Sequence[SpeciesState], emits, compact: Outbox,
-                starts_j, a_j, block: int = BLOCK) -> List[SpeciesState]:
-    """Plain PyTorch version of merge_p (new tensors), bit-identical to the
-    JAX package's merge_p in every lane: per block, keepers (live, not
-    emitted) first in lane order, then the block's newcomers, then zeros; a
-    block with no keepers and no newcomers keeps its rows with live 0 and w
-    0 on dead lanes.  Moved floats get + 0.0 (merge_p's one-hot dots turn a
-    -0.0 into +0.0)."""
+                starts_j, a_j, out: Sequence[SpeciesState],
+                block: int = BLOCK) -> List[SpeciesState]:
+    """Plain PyTorch version of merge_p, bit-identical to the JAX package's
+    merge_p in every lane: per block, keepers (live, not emitted) first in
+    lane order, then the block's newcomers, then zeros; a block with no
+    keepers and no newcomers keeps its rows with live 0 and w 0 on dead
+    lanes.  Moved floats get + 0.0 (merge_p's one-hot dots turn a -0.0 into
+    +0.0).  Each species is computed whole, then copied into its
+    destination, which may be its input."""
+    _check_out(sps, out, block)
     dev = compact.vox.device
     i64 = torch.int64
     M = compact.vox.shape[0]
@@ -232,12 +252,9 @@ def merge_p_ref(sps: Sequence[SpeciesState], emits, compact: Outbox,
     cv = torch.cat([compact.vox, torch.zeros(1, dtype=torch.int32,
                                              device=dev)])
     fnames = ("dx", "dy", "dz", "ux", "uy", "uz", "w")
-    out, b0 = [], 0
-    for sp, em in zip(sps, emits):
+    res, b0 = [], 0
+    for sp, em, o in zip(sps, emits, out):
         N = sp.capacity
-        if N % block:
-            raise ValueError(f"merge_p needs block-multiple capacities, "
-                             f"got {N}")
         nb = N // block
         live = sp.live.view(nb, block)
         keep = live & ~em.view(nb, block)
@@ -269,15 +286,19 @@ def merge_p_ref(sps: Sequence[SpeciesState], emits, compact: Outbox,
         moved = torch.where(is_keep, torch.gather(x, 1, src),
                             torch.where(is_new, cv[c], 0))
         merged["i"] = torch.where(dead_blk, x, moved).reshape(N)
-        new_live = (~dead_blk & (lane < ntot)).reshape(N)
-        out.append(sp.replace(**merged, live=new_live,
-                              np=new_live.sum(dtype=torch.int32)))
+        merged["live"] = (~dead_blk & (lane < ntot)).reshape(N)
+        for n in LANE_FIELDS:
+            getattr(o, n).copy_(merged[n])
+        res.append(o.replace(np=merged["live"].sum(dtype=torch.int32)))
         b0 += nb
-    return out
+    return res
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 2
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+             + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 3)
+WORDS = LANE_FIELDS[:-1]    # the kernel's lane words, in its pointer order
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -291,61 +312,92 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_aligned(t: torch.Tensor, name: str):
+    """The kernel loads 4 lanes at once: 16 bytes of a lane word, 4 of a
+    mark."""
+    if t.data_ptr() % (4 * t.element_size()):
+        raise ValueError(f"{name} is not aligned to 4 lanes")
+
+
+def _check_dest(src: torch.Tensor, dst: torch.Tensor, name: str):
+    """A destination tensor is its (checked) input's memory, as the step
+    merges, or a tensor of the same type and shape that lies apart from
+    it."""
+    a, b = src.data_ptr(), dst.data_ptr()
+    if a == b and dst.dtype == src.dtype and dst.shape == src.shape \
+            and dst.is_contiguous():
+        return
+    _check(dst, name, src.dtype, tuple(src.shape), src.device)
+    n = src.numel() * src.element_size()
+    if a < b + n and b < a + n:
+        raise ValueError(f"{name} overlaps its input without being it")
+    _check_aligned(dst, name)
+
+
 def merge_p(sps: Sequence[SpeciesState], emits, compact: Outbox, starts_j,
-            a_j, block: int = BLOCK) -> List[SpeciesState]:
+            a_j, out: Sequence[SpeciesState],
+            block: int = BLOCK) -> List[SpeciesState]:
     """Drop emitted lanes, compact each block's keepers in lane order and
     append the block's routed newcomers (block j takes compact rows
-    [starts_j, starts_j + a_j)).  Capacities must be multiples of ``block``
-    (the residency path works on extent slices).  Returns the merged species
-    as new tensors.
+    [starts_j, starts_j + a_j)), writing species k into ``out[k]``'s
+    tensors.  A destination tensor may be its input tensor (the step merges
+    in place) or must lie apart from it.  Capacities must be multiples of
+    ``block`` (the residency path works on extent slices).  Returns the
+    destination species with their new ``np``.
 
-    CUDA tensors: one launch of csrc/merge_p.cu per species.  CPU tensors:
-    the plain version.  Any other device raises."""
+    CUDA tensors: one launch of csrc/merge_p.cu for every species
+    (MAX_SPECIES to a launch).  CPU tensors: the plain version.  Any other
+    device raises."""
     global launches
     dev = sps[0].dx.device if sps else compact.vox.device
     if dev.type == "cpu":
-        return merge_p_ref(sps, emits, compact, starts_j, a_j, block)
+        return merge_p_ref(sps, emits, compact, starts_j, a_j, out, block)
     if dev.type != "cuda":
         raise ValueError(f"merge_p: unsupported device {dev}")
     if block != BLOCK:
         raise ValueError(f"the merge kernel works on {BLOCK}-lane blocks")
+    _check_out(sps, out, block)
     M = compact.vox.shape[0]
     _check(compact.f, "compact.f", torch.float32, (7, M), dev)
     _check(compact.vox, "compact.vox", torch.int32, (M,), dev)
     nblocks = []
-    for k, (sp, em) in enumerate(zip(sps, emits)):
+    for k, (sp, em, o) in enumerate(zip(sps, emits, out)):
         N = sp.capacity
-        if N % block:
-            raise ValueError(f"species[{k}] capacity {N} is not a multiple "
-                             f"of {block}")
         nblocks.append(N // block)
-        for name in ("dx", "dy", "dz", "ux", "uy", "uz", "w"):
-            _check(getattr(sp, name), f"species[{k}].{name}", torch.float32,
-                   (N,), dev)
-        _check(sp.i, f"species[{k}].i", torch.int32, (N,), dev)
-        _check(sp.live, f"species[{k}].live", torch.bool, (N,), dev)
+        for n in LANE_FIELDS:
+            dtype = (torch.bool if n == "live" else
+                     torch.int32 if n == "i" else torch.float32)
+            src = getattr(sp, n)
+            _check(src, f"species[{k}].{n}", dtype, (N,), dev)
+            _check_aligned(src, f"species[{k}].{n}")
+            _check_dest(src, getattr(o, n), f"out[{k}].{n}")
         _check(em, f"emits[{k}]", torch.bool, (N,), dev)
+        _check_aligned(em, f"emits[{k}]")
     total = sum(nblocks)
     _check(starts_j, "starts_j", torch.int32, (total,), dev)
     _check(a_j, "a_j", torch.int32, (total,), dev)
 
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    out, b0 = [], 0
-    for k, (sp, em) in enumerate(zip(sps, emits)):
-        N = sp.capacity
-        o = {n: torch.empty_like(getattr(sp, n)) for n in LANE_FIELDS}
-        if N:
-            rc = lib.merge_p(
-                *(getattr(sp, n).data_ptr() for n in LANE_FIELDS),
-                em.data_ptr(),
-                *(o[n].data_ptr() for n in LANE_FIELDS),
-                compact.f.data_ptr(), compact.vox.data_ptr(), M, M,
-                starts_j[b0:].data_ptr(), a_j[b0:].data_ptr(), N, stream)
-            if rc != 0:
-                msg = lib.merge_p_error_string(rc).decode()
-                raise RuntimeError(f"merge_p launch failed: {msg} ({rc})")
-            launches += 1
-        out.append(sp.replace(**o, np=o["live"].sum(dtype=torch.int32)))
-        b0 += nblocks[k]
-    return out
+    nps = torch.zeros(len(sps), dtype=torch.int32, device=dev)
+    j0 = [sum(nblocks[:k]) for k in range(len(sps))]
+    for grp in species_groups(sps):
+        ptrs = []
+        for k in grp:
+            sp, o = sps[k], out[k]
+            ptrs += [getattr(sp, n).data_ptr() for n in WORDS]
+            ptrs += [sp.live.data_ptr(), emits[k].data_ptr()]
+            ptrs += [getattr(o, n).data_ptr() for n in WORDS]
+            ptrs += [o.live.data_ptr(), nps[k:].data_ptr()]
+        blk0, grid = launch_plan([nblocks[k] for k in grp])
+        rc = lib.merge_p(
+            len(grp), c_array(ctypes.c_void_p, ptrs),
+            c_array(ctypes.c_int, blk0),
+            c_array(ctypes.c_int, [j0[k] for k in grp]), grid,
+            compact.f.data_ptr(), compact.vox.data_ptr(), M, M,
+            starts_j.data_ptr(), a_j.data_ptr(), stream)
+        if rc != 0:
+            msg = lib.merge_p_error_string(rc).decode()
+            raise RuntimeError(f"merge_p launch failed: {msg} ({rc})")
+        launches += 1
+    return [o.replace(np=nps[k]) for k, o in enumerate(out)]

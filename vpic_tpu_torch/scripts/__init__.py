@@ -32,41 +32,65 @@ def device(cpu: bool) -> torch.device:
     return torch.device("cuda")
 
 
-def cuda_ms(fn, n: int) -> float:
+def cuda_ms(fn, n: int, setup=None) -> float:
     """ms per call of fn(): the best of WINDOWS windows of n calls between
-    CUDA events, after one warm-up call."""
+    CUDA events, after one warm-up call.  With ``setup`` (for a call that
+    changes its own input, such as the in-place merge), every call is
+    preceded by setup() and timed on its own, outside setup's time."""
+    if setup is not None:
+        setup()
     fn()
     best = float("inf")
     for _ in range(WINDOWS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        if setup is None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end) / n)
+            continue
+        total = 0.0
         for _ in range(n):
+            setup()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / n)
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        best = min(best, total / n)
     return best
 
 
-def device_kernels(fn, n: int) -> dict:
+def device_kernels(fn, n: int, setup=None) -> dict:
     """{kernel name: (launches, device ms)} per fn() call, from
-    torch.profiler's device events over n calls after one warm-up call."""
+    torch.profiler's device events over n calls after one warm-up call.
+    With ``setup``, each call is preceded by setup() inside the window: its
+    kernels are in the result too, so read the call's own by name."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
+            if setup is not None:
+                setup()
             fn()
         torch.cuda.synchronize()
     return {e.key: (e.count / n, e.device_time_total / 1e3 / n)
             for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
 
-def kernel_device_ms(fn, kernel: str, n: int) -> float:
-    """Device ms per fn() call in the kernels whose name holds ``kernel``."""
-    return sum(ms for name, (_, ms) in device_kernels(fn, n).items()
+def kernel_device_ms(fn, kernel: str, n: int, setup=None) -> float:
+    """Device ms per fn() call in the kernels whose name holds ``kernel``
+    (with ``setup`` run before each call, as device_kernels)."""
+    return sum(ms for name, (_, ms) in device_kernels(fn, n, setup).items()
                if kernel in name)
 
 

@@ -13,9 +13,10 @@ ppc, L = 16) -- and prints three things, each as one JSON line:
   cleaners run every time here though the step runs them only on their
   cadence.  3-D adds the residency layers: the rebucket (the slack-padded
   brick sort, run by the step only when the exchange cannot merge), the
-  exchange plan (block_counts + plan_exchange + any_misplaced), the merge
-  and the join of the dead capacity tail; each 3-D push and merge runs on
-  a fresh copy of the same lanes;
+  rebucket's copy of its sort into the state's extent slices, the exchange
+  plan (block_counts + plan_exchange + any_misplaced) and the merge, in
+  place as the step runs it; each 3-D push and merge runs on a fresh copy
+  of the same lanes, made before the call and outside its time;
 * ``step``: ms per step of the real step (host clock around synchronize),
   the device's busy share of that time from torch.profiler (kernel time
   summed / wall time), kernel launches per step and, in 3-D, rebuckets,
@@ -179,15 +180,24 @@ def _layers_3d(sim, state):
         return plan
 
     compact, starts_j, a_j, _, _ = exchange()
-    merged = RES.merge_p(pushed, emits, compact, starts_j, a_j)
+    merged = [sp.replace(**{n: getattr(sp, n).clone()
+                            for n in FP3.LANE_FIELDS}) for sp in pushed]
+
+    def restore():
+        for m, p in zip(merged, pushed):
+            for n in FP3.LANE_FIELDS:
+                getattr(m, n).copy_(getattr(p, n))
+
+    def merge():
+        return RES.merge_p(merged, emits, compact, starts_j, a_j, merged)
+
     layers = {
         "rebucket": _time(rebucket),
         "push": _time(push, setup=fresh),
         "exchange": _time(exchange),
-        "merge": _time(lambda: RES.merge_p(pushed, emits, compact, starts_j,
-                                           a_j)),
-        "join": _time(lambda: [RES.join_species(sE, sF, E) for sE, sF, E in
-                               zip(merged, state.species, exts)]),
+        "merge": _time(merge, setup=restore),
+        "rebucket_copy": _time(lambda: [RES.copy_species(m, b) for m, b in
+                                        zip(merged, base)]),
     }
     layers.update(_common_layers(sim, state, merged, qms, acc))
     return layers
@@ -231,7 +241,6 @@ def main(argv):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
-    nsp = len(state.species)
     reb0 = int(state.diag["_res_rebuckets"]) if three else 0
     RES.launches = 0
     sim.host_syncs = 0
@@ -258,7 +267,7 @@ def main(argv):
         step_info.update(
             window_steps=n,
             rebuckets=int(state.diag["_res_rebuckets"]) - reb0,
-            merges=RES.launches // nsp, host_syncs=sim.host_syncs)
+            merges=RES.launches, host_syncs=sim.host_syncs)
     print(json.dumps({"step": step_info}))
     kernels.sort(key=lambda k: -k[1])
     print(json.dumps({"kernels": [
