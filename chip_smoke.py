@@ -6,9 +6,10 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. build: the six kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
-     merge_p.cu, compact_block.cu with the compaction and the block copy,
-     mailbox.cu, field_beb.cu) built for sm_90a, one nvcc each, started
+  2. build: the seven kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
+     move_p.cu, merge_p.cu, compact_block.cu with the compaction and the
+     block copy, mailbox.cu, field_beb.cu) built for sm_90a, one nvcc each,
+     started
      together; prints ptxas' registers / spills / shared memory, and the
      push kernels' CUDA blocks per SM;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
@@ -60,7 +61,39 @@ Phases, each of which must pass (any failure exits non-zero):
  10. field trio: the entry point vpic_tpu_torch.scripts.field_fuse_proto
      (its main()) at the 64^2 x 4 ppc harris fields and at the 32^3 harris
      fields (4 ppc), fused kernel against the plain trio to 1e-6 abs on each
-     output, exactly one launch per trio, both timed.
+     output, exactly one launch per trio, both timed;
+ 11. lpi: the lpi deck at its published width (128 x 32 cells, 16 ppc in the
+     slab: 2 species of 32,768 particles; absorbing field walls, reflux
+     particle walls, the laser through user_field_injection) on the card:
+     the 2-D push kernel's WALLS instance against its plain version after
+     the first sort (lanes, pend codes, remaining displacement, acc, rhob),
+     both timed; then 200 steps, which must launch the push kernel exactly
+     once a step and the reflux walk kernel (move_p) once per handler call,
+     keep every particle (reflux re-emits what reaches a wall) and stay
+     finite; prints ms/step, launches, and over 20 more steps the kernel
+     launches a step and the device's busy share (torch.profiler); 2 more
+     steps must make no synchronizing operation (torch's sync debug
+     mode); then
+     move_p against its plain version on the lanes a push parks and on a
+     denser set (lanes, pend codes, displacement, acc, rhob), both timed;
+     the lanes parked at the walls a step; then the push kernel against its
+     plain version again;
+ 12. 2-D region walls: a 128^2 periodic deck (16 ppc, 262,144 electrons)
+     with an absorbing interior square, 10 steps on the card (the kernel
+     must have run, lanes must have died), then the kernel against its
+     plain version on the lanes those steps left (lanes, pend, acc, rhob);
+ 13. 3-D region walls: a 32^3 periodic deck (32 ppc, 1,048,576 electrons)
+     with an absorbing interior cube, on the residency path: 20 steps
+     (the push kernel once a step, merges, lanes dying at the region), then
+     the 3-D kernel's WALLS instance with its residency outbox against its
+     plain version on the residency lanes and home maps the run left (no
+     lane stopped at a wall reaches the outbox), both timed;
+ 14. general path: a 24 x 24 x 20 periodic deck (16 ppc; nz is no
+     multiple of 8, so no bricks) with the absorbing cube and reflux
+     particle walls at +-x, 10 steps on the card: the 3-D kernel without
+     home maps once a step, move_p once per handler run (boundary_p's
+     num_comm_round + 1 runs), lanes absorbed; then the kernel against its
+     plain version on the lanes the run left.
 The kernel launch counts of each run are reset just before it and read just
 after it.  Then it prints the kernels' JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -70,11 +103,16 @@ import json
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 
 N_STEPS = 200
 N_STEPS_3D = 100
+LPI = {}                        # lpi at its published defaults
+REGION_2D = ((128, 128, 1), 16)
+REGION_3D = ((32, 32, 32), 32)
+REGION_GENERAL = ((24, 24, 20), 16)   # nz not a multiple of 8: no bricks
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
@@ -254,6 +292,194 @@ def small_reference(torch, harris, p, what):
           "(fields 5e-7 + 1e-5 max|a|, energies 1e-6 sum, live counts)")
 
 
+def compare_walls(torch, PT, P, what, fn, ref, g, species, fcoef, qms,
+                  vbc=None, **kw):
+    """A push kernel's WALLS instance against its plain version on clones of
+    the same lanes, each with its own accumulator and a rhob from zero.
+    Over the lanes live when the push began: voxels, live masks and pend
+    codes equal but for at most 1 lane in 1e5 at a face (lane_diff's rule),
+    offsets, momenta and remaining displacement to 3e-5; a killed lane has
+    w = 0; the accumulator to 1e-5 max|acc| and rhob to 1e-5 max|rhob|
+    (float atomics); with residency, the emit marks of the agreeing lanes
+    equal and no lane stopped at a wall emitted.  Returns (max abs error,
+    lanes parked, lanes killed)."""
+    print(f"compare: {what}")
+    outs = []
+    for f in (fn, ref):
+        walls = P.Walls(torch.zeros(g.nv, device=fcoef.device), vbc)
+        acc = torch.zeros((g.nv, 12), device=fcoef.device)
+        outs.append((f(PT.clone_species(species), fcoef, acc, g, qms,
+                       walls=walls, **kw), acc, walls))
+    torch.cuda.synchronize()
+    (rk, acc_k, wk), (rr, acc_r, wr) = outs
+    emits = (rk[2], rr[2]) if len(rk) == 6 and rk[2] is not None else None
+    err, parked, killed = 0.0, 0, 0
+    host = lambda t: t.cpu().numpy()
+    for k, (s0, a, b) in enumerate(zip(species, rk[0], rr[0])):
+        live0 = host(s0.live)
+        diff = live0 & host((a.i != b.i) | (a.live != b.live)
+                            | (wk.pends[k] != wr.pends[k]))
+        if diff.sum() > max(1, live0.sum() // 100_000):
+            fail(f"{what}: {int(diff.sum())} lanes differ in voxel, life "
+                 "or pend code")
+        for sp in (a, b):
+            pos = np.stack([host(getattr(sp, n))[diff]
+                            for n in ("dx", "dy", "dz")])
+            if diff.any() and ((1.0 - np.abs(pos)).min(axis=0) > 1e-5).any():
+                fail(f"{what}: a differing lane is not at a face")
+        keep = live0 & ~diff
+        pairs = [(host(getattr(a, n))[keep], host(getattr(b, n))[keep], n)
+                 for n in ("dx", "dy", "dz", "ux", "uy", "uz")]
+        pairs.append((host(wk.disps[k])[:, keep], host(wr.disps[k])[:, keep],
+                      "remaining displacement"))
+        for x, y, n in pairs:
+            e = float(np.abs(x - y).max()) if x.size else 0.0
+            if e > 3e-5:
+                fail(f"{what}: species {k}.{n}: max abs err {e} > 3e-5")
+            err = max(err, e)
+        dead = live0 & ~host(a.live)
+        if host(a.w)[dead].any():
+            fail(f"{what}: a killed lane keeps its weight")
+        if int(a.np) != int(a.live.sum()):
+            fail(f"{what}: np is not the live count")
+        stopped = (host(wk.pends[k]) >= P.CUSTOM_BASE) & live0
+        parked += int(stopped.sum())
+        killed += int(dead.sum())
+        if emits is not None:
+            ea, eb = host(emits[0][k]), host(emits[1][k])
+            if not np.array_equal(ea[~diff], eb[~diff]):
+                fail(f"{what}: species {k}: emit marks differ")
+            if ea[stopped | dead].any():
+                fail(f"{what}: a lane stopped at a wall reached the outbox")
+    err = max(err, compare_acc(acc_k, acc_r))
+    ra, rb = host(wk.rhob), host(wr.rhob)
+    e = float(np.abs(ra - rb).max())
+    scale = float(np.abs(rb).max())
+    print(f"  rhob: max abs err {e:.3e}, max |rhob| {scale:.3e}; {parked} "
+          f"lanes parked at a custom face, {killed} killed at an absorbing "
+          "one")
+    if e > 1e-5 * max(scale, 1e-30):
+        fail(f"{what}: rhob max abs err {e} > 1e-5 * max|rhob|")
+    unf = (rk[-1], rr[-1]) if len(rk) == 6 else (rk[2], rr[2])
+    if int(unf[0]) != int(unf[1]):
+        fail(f"{what}: unfinished streaks differ")
+    return max(err, e), parked, killed
+
+
+def compare_move(torch, PT, P, MP, what, g, sp, pend, disp, active, qsp):
+    """The move_p kernel against its plain version on clones of the same
+    lanes, pend codes and displacement, each with its own accumulator and a
+    rhob from zero.  Over the lanes live before: voxels, live masks and
+    pend codes equal but for at most 1 lane in 1e5 at a face (lane_diff's
+    rule), offsets, momenta and remaining displacement to 3e-5, w equal;
+    acc to 1e-5 max|acc| and rhob to 1e-5 max|rhob| (float atomics).
+    Returns (max abs error, lanes walked, lanes killed, lanes parked
+    again)."""
+    outs = []
+    for f in (MP.move_p, MP.move_p_ref):
+        acc = torch.zeros((g.nv, 12), device=sp.dx.device)
+        rhob = torch.zeros(g.nv, device=sp.dx.device)
+        c = PT.clone_species([sp])[0]
+        out = f(c, pend.clone(), tuple(d.clone() for d in disp), acc, rhob,
+                g, qsp, active)
+        outs.append((c, out, acc, rhob))
+    torch.cuda.synchronize()
+    (a, oa, acc_k, rk), (b, ob, acc_r, rr) = outs
+    host = lambda t: t.cpu().numpy()
+    live0 = host(sp.live)
+    diff = live0 & host((a.i != b.i) | (a.live != b.live)
+                        | (oa[1] != ob[1]))
+    if diff.sum() > max(1, live0.sum() // 100_000):
+        fail(f"{what}: {int(diff.sum())} lanes differ in voxel, life or "
+             "pend code")
+    keep = live0 & ~diff
+    err = 0.0
+    pairs = [(host(getattr(a, n)), host(getattr(b, n)), n)
+             for n in ("dx", "dy", "dz", "ux", "uy", "uz", "w")]
+    pairs.append((np.stack([host(d) for d in oa[2]]),
+                  np.stack([host(d) for d in ob[2]]),
+                  "remaining displacement"))
+    for x, y, n in pairs:
+        e = float(np.abs(x[..., keep] - y[..., keep]).max()) \
+            if keep.any() else 0.0
+        if e > (0.0 if n == "w" else 3e-5):
+            fail(f"{what}: {n}: max abs err {e}")
+        err = max(err, e)
+    if int(oa[0].np) != int(a.live.sum()) or \
+            int(oa[0].np) != int(ob[0].np):
+        fail(f"{what}: np is not the live count, or differs")
+    err = max(err, compare_acc(acc_k, acc_r))
+    e = float(np.abs(host(rk) - host(rr)).max())
+    if e > 1e-5 * max(float(np.abs(host(rr)).max()), 1e-30):
+        fail(f"{what}: rhob max abs err {e}")
+    walked = int((active & sp.live).sum())
+    killed = int((sp.live & ~a.live).sum())
+    parked = int(((oa[1] >= P.CUSTOM_BASE) & active & sp.live).sum())
+    print(f"compare: {what}: {walked} lanes walked, {killed} killed, "
+          f"{parked} parked again; max abs err {max(err, e):.3e}")
+    return max(err, e), walked, killed, parked
+
+
+def move_inputs(torch, P, FP, g, species, fcoef, qms, seed):
+    """The reflux walk's inputs at the main path's shapes: a kernel push
+    (WALLS) of clones of ``species``; per species the lanes it parked, with
+    pend DONE and a new remaining displacement (normal, 0.5 cells), and a
+    denser set (every 8th live lane, 1.5 cells) that reaches more faces."""
+    from vpic_tpu_torch.utils import push_timing as PT
+    walls = P.Walls(torch.zeros(g.nv, device=fcoef.device))
+    acc = torch.zeros((g.nv, 12), device=fcoef.device)
+    pushed, _, _ = FP.fused_push_multi(PT.clone_species(species), fcoef, acc,
+                                       g, qms, walls=walls)
+    gen = torch.Generator(device=fcoef.device).manual_seed(seed)
+    out = []
+    for sp, pend in zip(pushed, walls.pends):
+        n = sp.capacity
+        parked = (pend >= P.CUSTOM_BASE) & sp.live
+        dense = sp.live & (torch.arange(n, device=sp.dx.device) % 8 == 0)
+        for active, scale in ((parked, 0.5), (dense | parked, 1.5)):
+            disp = tuple(torch.where(active, scale * torch.randn(
+                n, generator=gen, device=sp.dx.device), 0.0)
+                for _ in range(3))
+            out.append((sp, torch.where(active, P.DONE, pend), disp,
+                        active))
+    return out
+
+
+def region_deck(vt, shape, ppc, capacity_factor=1.0):
+    """A periodic unit box (nz == 1: one cell thick) with an absorbing
+    interior box [0.375, 0.625]^d, ppc warm electrons a cell outside it
+    (the decks of tests/test_region_pbc.py at a real size), on the card."""
+    nx, ny, nz = shape
+    lz = 1.0 if nz > 1 else 1.0 / nx
+    sim = vt.Simulation(seed=5)
+    sim.define_units(1.0, 1.0)
+    g0 = vt.partition_periodic_box(0, 0, 0, 1.0, 1.0, lz, nx, ny, nz)
+    sim.define_timestep(0.7 * g0.courant_length())
+    sim.define_periodic_grid((0, 0, 0), (1.0, 1.0, lz), shape)
+    sim.define_material("vacuum", 1.0)
+    sim.define_field_array(damp=0.0)
+    n = int(nx * ny * nz * ppc)
+    ele = sim.define_species("electron", -1.0, 1.0,
+                             int(n * capacity_factor))
+
+    def inside(x, y, z):
+        return (0.375 < x < 0.625) and (0.375 < y < 0.625) and \
+            (nz == 1 or 0.375 < z < 0.625)
+
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0, 1, (2 * n, 3)) * [1.0, 1.0, lz]
+    out = ~((np.abs(pos[:, 0] - 0.5) < 0.125) & (np.abs(pos[:, 1] - 0.5)
+                                                  < 0.125)
+            & ((nz == 1) | (np.abs(pos[:, 2] - 0.5) < 0.125)))
+    pos = pos[out][:n]
+    u = rng.normal(0, 0.3, (n, 3))
+    w = lz / n                    # density 1
+    for (x, y, z), (ux, uy, uz) in zip(pos.tolist(), u.tolist()):
+        sim.inject_particle(ele, x, y, z, ux, uy, uz, w)
+    sim.set_region_particle_bc(inside, vt.ABSORB_PARTICLES)
+    return sim
+
+
 def reset_counts(counters):
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -398,6 +624,342 @@ def residency_prototypes(counters, card):
     return results
 
 
+def wall_phases(torch, counters, card):
+    """Phases 11-14 (the decks with wall faces); returns the kernels' line
+    entries of the two push kernels' WALLS instances and of the reflux walk
+    kernel."""
+    import vpic_tpu_torch as vt
+    from vpic_tpu_torch import boundary_ops as BO
+    from vpic_tpu_torch.models import lpi
+    from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
+    from vpic_tpu_torch.ops import interp as I
+    from vpic_tpu_torch.ops import move_p as MP
+    from vpic_tpu_torch.ops import push as P
+    from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.scripts import cuda_ms, kernel_device_ms
+    from vpic_tpu_torch.utils import push_timing as PT
+
+    results = {}
+    # --- phase 11: lpi on the card ---
+    sim = lpi.build(lpi.LPIParams(**LPI))
+    t0 = time.perf_counter()
+    state = sim.initialize()
+    torch.cuda.synchronize()
+    g = sim.grid
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    n0 = [int(sp.np) for sp in state.species]
+    print(f"initialize: lpi 128 x 32 x 16 ppc ({n0} particles) in "
+          f"{time.perf_counter() - t0:.1f} s; path {sim.make_step().path}")
+    if sim.make_step().path != "push2d" or not P.has_walls(g):
+        fail("lpi does not take the 2-D kernel path with its walls")
+    sorted_sp = [FP.bucket_sort_p(sp, g, extent=st.count)
+                 for sp, st in zip(state.species, sim.species)]
+    fcoef = I.load_interpolator(state.fields, g)
+    err_w, _, _ = compare_walls(
+        torch, PT, P, "2-D kernel (WALLS) vs plain, lpi, first push after "
+        "the sort", FP.fused_push_multi, FP.fused_push_multi_ref, g,
+        sorted_sp, fcoef, qms)
+    walls = P.Walls(torch.zeros(g.nv, device=fcoef.device))
+    ms, plain_ms, ms2, plain_ms2 = (
+        PT.time_push(fn, g, sorted_sp, fcoef, qms, walls=walls)
+        for fn in (FP.fused_push_multi, FP.fused_push_multi_ref) * 2)
+    dev_ms = PT.push_device_ms(FP.fused_push_multi, "fused_push2d_kernel",
+                               g, sorted_sp, fcoef, qms, walls=walls)
+    print(f"timing ({card}): 2-D kernel (WALLS) at lpi {ms:.4f} / "
+          f"{ms2:.4f} ms, plain {plain_ms:.4f} / {plain_ms2:.4f} ms per push "
+          f"of both species (CUDA events, mean of {PT.REPS}, order "
+          "kernel-plain-kernel-plain); kernel device time "
+          f"{dev_ms:.5f} ms per push of both species (torch.profiler, "
+          f"{PT.REPS} pushes)")
+    slots = sum(sp.capacity for sp in sorted_sp)
+    live = sum(int(sp.live.sum()) for sp in sorted_sp)
+    # + per live lane the pend code and remaining displacement written
+    # (slots dead when the push began get none)
+    nbytes, flops = push_bytes(sorted_sp, g, slots, extra=16 * live)
+    bms, bby = bound_ms(nbytes, flops)
+    results["fused_push2d_walls"] = dict(
+        name="fused_push2d_walls", route="cuda",
+        source="vpic_tpu_torch/csrc/fused_push2d.cu",
+        replaces="vpic_tpu/ops/pallas_push.py:251 (wall pre-flag :439-474, "
+                 "region mark :461-472, outlier replay :972-1048)",
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+        library_ms=None)
+    state, elapsed, launches = run_steps(torch, sim, state, N_STEPS,
+                                         counters)
+    if launches[FP.KERNEL] != N_STEPS:
+        fail(f"lpi: the 2-D push kernel launched {launches[FP.KERNEL]} "
+             f"times in {N_STEPS} steps")
+    n1 = [int(sp.np) for sp in state.species]
+    if n1 != n0 or [int(sp.live.sum()) for sp in state.species] != n0:
+        fail(f"lpi: {n0} particles became {n1} (reflux keeps them all)")
+    en = sim.energies(state)
+    if not torch.isfinite(en).all() or not all(
+            torch.isfinite(sp.ux).all() for sp in state.species):
+        fail("lpi: non-finite energies or momenta")
+    results["fused_push2d_walls"]["launches"] = launches[FP.KERNEL]
+    walks = len(sim.pbc_handlers) * len(state.species) * N_STEPS
+    if launches[MP.KERNEL] != walks:
+        fail(f"lpi: the reflux walk kernel launched {launches[MP.KERNEL]} "
+             f"times in {N_STEPS} steps, not once per handler call "
+             f"({walks})")
+    print(f"run lpi: {N_STEPS} steps, {sum(n0)} particles kept, "
+          f"{elapsed * 1e3 / N_STEPS:.3f} ms/step ({card}, host clock around "
+          f"synchronize); launches {launches}; field energy "
+          f"{float(en[:6].sum()):.4e}, max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    step = sim.make_step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n_win = 20
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_win):
+            state = step(state)
+        torch.cuda.synchronize()
+        win_ms = (time.perf_counter() - t0) * 1e3 / n_win
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in kern) / 1e3 / n_win
+    push_dev, move_dev = (sum(e.device_time_total for e in kern
+                              if name in e.key) / 1e3 / n_win
+                          for name in ("fused_push2d_kernel",
+                                       "move_p_kernel"))
+    print(f"run lpi: over {n_win} profiled steps {win_ms:.3f} ms/step, "
+          f"{sum(e.count for e in kern) / n_win:.1f} kernel launches a step, "
+          f"device busy {busy:.4f} ms/step ({100 * busy / win_ms:.1f} % of "
+          f"the window), push kernel {push_dev:.5f} device ms/step, reflux "
+          f"walk kernel {move_dev:.5f} (torch.profiler; {card})")
+
+    # the walled step reads nothing back from the card: not one
+    # synchronizing operation (torch's sync debug mode warns at each)
+    def synchronizing(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # (the mode's own notice that it is a prototype is not one)
+        return [w for w in caught if "synchroniz" in str(w.message)
+                and "prototype" not in str(w.message)]
+
+    # a read of the card must be seen, or the check below proves nothing
+    if not synchronizing(lambda: int(state.species[0].np)):
+        fail("torch's sync debug mode did not see a device read")
+    box = {"state": state}
+
+    def two_steps():
+        for _ in range(2):
+            box["state"] = step(box["state"])
+
+    syncs = synchronizing(two_steps)
+    state = box["state"]
+    print(f"run lpi: {len(syncs)} synchronizing operations in 2 more steps "
+          "(torch.cuda.set_sync_debug_mode)")
+    if syncs:
+        fail(f"lpi: the step synchronizes with the card: {syncs[0].message} "
+             f"({syncs[0].filename}:{syncs[0].lineno})")
+
+    # the reflux walk kernel against its plain version at lpi's shapes:
+    # the lanes the push parks, and a denser set that reaches more faces
+    fcoef = I.load_interpolator(state.fields, g)
+    inputs = move_inputs(torch, P, FP, g, list(state.species), fcoef, qms,
+                         seed=7)
+    err_m = 0.0
+    for j, (sp, pend, disp, active) in enumerate(inputs):
+        which = "the lanes the push parked" if j % 2 == 0 else \
+            "every 8th lane"
+        err_m = max(err_m, compare_move(
+            torch, PT, P, MP, f"move_p vs plain, lpi species {j // 2}, "
+            f"{which}", g, sp, pend, disp, active, qms[j // 2][0])[0])
+    sp, pend, disp, active = inputs[0]
+    box = {}
+
+    def setup():
+        box.update(sp=PT.clone_species([sp])[0], pend=pend.clone(),
+                   disp=tuple(d.clone() for d in disp),
+                   acc=torch.zeros((g.nv, 12), device=fcoef.device),
+                   rhob=torch.zeros(g.nv, device=fcoef.device))
+
+    def walk(f):
+        return lambda: f(box["sp"], box["pend"], box["disp"], box["acc"],
+                         box["rhob"], g, qms[0][0], active)
+
+    m_ms, m_plain, m_ms2, m_plain2 = (
+        cuda_ms(walk(f), PT.REPS, setup)
+        for f in (MP.move_p, MP.move_p_ref) * 2)
+    m_dev = kernel_device_ms(walk(MP.move_p), "move_p_kernel", PT.REPS,
+                             setup)
+    walked = int((active & sp.live).sum())
+    print(f"timing ({card}): move_p at lpi species 0 ({sp.capacity} slots, "
+          f"{walked} lanes walking) {m_ms:.4f} / {m_ms2:.4f} ms, plain "
+          f"{m_plain:.4f} / {m_plain2:.4f} ms (CUDA events, input restored "
+          f"before each call, best of windows of {PT.REPS}); kernel device "
+          f"time {m_dev:.5f} ms (torch.profiler)")
+    # the live and active flags of every slot; per walking lane 8 words,
+    # its pend code and displacement read and written back (7 words), and
+    # at least one deposit round's 12 currents read and written
+    bms, bby = bound_ms(2 * sp.capacity + walked * (48 + 44 + 96),
+                        walked * 40)
+    results["move_p"] = dict(
+        name="move_p", route="cuda", source="vpic_tpu_torch/csrc/move_p.cu",
+        replaces="vpic_tpu/boundary_ops.py:31 (_continue_walk, the reflux "
+                 "walk: plain jnp, no TPU kernel)",
+        launches=launches[MP.KERNEL], max_abs_err=err_m, ms=m_ms,
+        plain_ms=m_plain, bound_ms=bms, bound_by=bby, library_ms=None)
+    parked = torch.zeros((), dtype=torch.int64,
+                         device=state.fields.ex.device)
+
+    def counting(h):
+        def spy(gen, sp, pend, *rest):
+            parked.add_(((pend == P.CUSTOM_BASE + rest[5])
+                         & sp.live).sum())
+            return h(gen, sp, pend, *rest)
+        spy.in_place = True
+        return spy
+
+    handlers = sim.pbc_handlers
+    sim.pbc_handlers = {k: counting(h) for k, h in handlers.items()}
+    step = sim.make_step()
+    for _ in range(n_win):
+        state = step(state)
+    sim.pbc_handlers = handlers
+    print(f"run lpi: {int(parked) / n_win:.1f} lanes parked at the reflux "
+          f"walls a step ({n_win} more steps)")
+    err_w = max(err_w, compare_walls(
+        torch, PT, P, f"2-D kernel (WALLS) vs plain, lpi after "
+        f"{N_STEPS + 2 * n_win} steps", FP.fused_push_multi,
+        FP.fused_push_multi_ref, g, list(state.species),
+        I.load_interpolator(state.fields, g), qms)[0])
+    del sim, state, sorted_sp, fcoef, step
+
+    # --- phase 12: a 2-D deck with an absorbing region, 128^2 ---
+    sim = region_deck(vt, *REGION_2D)
+    state = sim.initialize()
+    g = sim.grid
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    n0 = int(state.species[0].np)
+    state, elapsed, launches = run_steps(torch, sim, state, 10, counters)
+    n1 = int(state.species[0].np)
+    print(f"run 2-D region: 10 steps of {n0} particles, {n0 - n1} absorbed "
+          f"at the region, {elapsed * 1e2:.3f} ms/step; launches {launches}")
+    if launches[FP.KERNEL] != 10 or not 0 < n0 - n1 or \
+            n1 != int(state.species[0].live.sum()):
+        fail("2-D region deck: the kernel did not run, or nothing was "
+             "absorbed, or np is not the live count")
+    err_w = max(err_w, compare_walls(
+        torch, PT, P, "2-D kernel (WALLS) vs plain, 128^2 x 16 ppc region "
+        "deck after 10 steps", FP.fused_push_multi, FP.fused_push_multi_ref,
+        g, list(state.species), I.load_interpolator(state.fields, g), qms,
+        vbc=sim._local_vbc())[0])
+    results["fused_push2d_walls"]["max_abs_err"] = err_w
+    del sim, state
+
+    # --- phase 13: a 3-D deck with an absorbing region, residency ---
+    t0 = time.perf_counter()
+    sim = region_deck(vt, *REGION_3D, capacity_factor=1.5)
+    state = sim.initialize()
+    torch.cuda.synchronize()
+    g = sim.grid
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    res_on, slack = sim._residency_mode()
+    if sim.make_step().path != "push3d" or not res_on:
+        fail("the 3-D region deck does not take the residency path")
+    n0 = int(state.species[0].np)
+    print(f"initialize: 32^3 x 32 ppc region deck ({n0} particles, "
+          f"residency slack {slack}) in {time.perf_counter() - t0:.1f} s")
+    state, elapsed, launches = run_steps(torch, sim, state, 20, counters)
+    n1 = int(state.species[0].np)
+    rebuckets = int(state.diag["_res_rebuckets"])
+    print(f"run 3-D region: 20 steps, {n0 - n1} absorbed at the region, "
+          f"{elapsed * 50:.3f} ms/step, rebuckets {rebuckets}, host syncs "
+          f"{sim.host_syncs}; launches {launches}")
+    if launches[FP3.KERNEL] != 20 or launches[RES.KERNEL] != 20 - rebuckets \
+            or not 0 < n0 - n1 or n1 != int(state.species[0].live.sum()):
+        fail("3-D region deck: a kernel did not run as the step should, or "
+             "nothing was absorbed, or np is not the live count")
+    exts = RES.extents(g, [st.count for st in sim.species], slack)
+    species = [RES.slice_species(sp, E)
+               for sp, E in zip(state.species, exts)]
+    homes = [state.diag[f"_chart_home{k}"] for k in range(len(species))]
+    fcoef = I.load_interpolator(state.fields, g)
+    vbc = sim._local_vbc()
+    kw = dict(homes=homes, residency=True)
+    err3w, _, _ = compare_walls(
+        torch, PT, P, "3-D kernel (WALLS) with its residency outbox vs "
+        "plain, 32^3 x 32 ppc region deck after 20 steps",
+        FP3.fused_push3d_multi, FP3.fused_push3d_multi_ref, g, species,
+        fcoef, qms, vbc=vbc, **kw)
+    walls = P.Walls(torch.zeros(g.nv, device=fcoef.device), vbc)
+    ms3, plain3, ms3b, plain3b = (
+        PT.time_push(fn, g, species, fcoef, qms, walls=walls, **kw)
+        for fn in (FP3.fused_push3d_multi, FP3.fused_push3d_multi_ref) * 2)
+    dev3 = PT.push_device_ms(FP3.fused_push3d_multi, "fused_push3d_kernel",
+                             g, species, fcoef, qms, walls=walls, **kw)
+    print(f"timing ({card}): 3-D kernel (WALLS) at the region deck "
+          f"{ms3:.4f} / {ms3b:.4f} ms, plain {plain3:.4f} / {plain3b:.4f} ms "
+          f"per push (CUDA events, mean of {PT.REPS}, order "
+          "kernel-plain-kernel-plain); kernel device time "
+          f"{dev3:.5f} ms per push (torch.profiler, {PT.REPS} pushes)")
+    slots = sum(sp.capacity for sp in species)
+    live = sum(int(sp.live.sum()) for sp in species)
+    M = sum(-(-sp.capacity // FP3.BLOCK) for sp in species) * FP3.OUT_CAP
+    # + the emit marks and outbox, and per live lane the wall outputs; the
+    # vbc rows are read only where a lane crosses a face, and left out
+    nbytes, flops = push_bytes(species, g, slots,
+                               extra=slots + M * 33 + 4 * (M // 128)
+                               + 16 * live)
+    bms, bby = bound_ms(nbytes, flops)
+    results["fused_push3d_walls"] = dict(
+        name="fused_push3d_walls", route="cuda",
+        source="vpic_tpu_torch/csrc/fused_push3d.cu",
+        replaces="vpic_tpu/ops/pallas_push3d.py:369 (pre-flag :550-576, "
+                 "region mark :578-590)",
+        launches=launches[FP3.KERNEL], max_abs_err=err3w, ms=ms3,
+        plain_ms=plain3, bound_ms=bms, bound_by=bby, library_ms=None)
+    del sim, state, species, fcoef
+
+    # --- phase 14: the general path (a 3-D grid the bricks do not tile) ---
+    t0 = time.perf_counter()
+    sim = region_deck(vt, *REGION_GENERAL)
+    reflux = BO.maxwellian_reflux({"electron": 0.3}, {"electron": 0.3})
+    for face in (0, 3):
+        sim.set_domain_particle_bc(face, reflux)
+    state = sim.initialize()
+    torch.cuda.synchronize()
+    g = sim.grid
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    if sim.make_step().path != "general" or FP3.supports3d(g):
+        fail("the general-path deck does not take the general path")
+    n0 = int(state.species[0].np)
+    print(f"initialize: {g.nx}x{g.ny}x{g.nz} general-path deck ({n0} "
+          f"particles, reflux x walls, absorbing region) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_gen = 10
+    state, elapsed, launches = run_steps(torch, sim, state, n_gen, counters)
+    n1 = int(state.species[0].np)
+    walks = len(sim.pbc_handlers) * (1 + sim.num_comm_round) * n_gen
+    print(f"run general path: {n_gen} steps, {n0 - n1} absorbed at the "
+          f"region, {elapsed * 1e3 / n_gen:.3f} ms/step; launches {launches}")
+    if launches[FP3.KERNEL] != n_gen or launches[MP.KERNEL] != walks or \
+            not 0 < n0 - n1 or n1 != int(state.species[0].live.sum()) or \
+            not torch.isfinite(sim.energies(state)).all():
+        fail("general path: the 3-D kernel did not push once a step, or the "
+             "reflux walk kernel not once per handler run, or nothing was "
+             "absorbed, or np is not the live count, or non-finite energies")
+    err_g, _, _ = compare_walls(
+        torch, PT, P, f"3-D kernel (WALLS) without home maps vs plain, the "
+        f"general path after {n_gen} steps", FP3.fused_push3d_multi,
+        FP3.fused_push3d_multi_ref, g, list(state.species),
+        I.load_interpolator(state.fields, g), qms, vbc=sim._local_vbc())
+    results["fused_push3d_walls"]["max_abs_err"] = max(err3w, err_g)
+    del sim, state
+
+    return results
+
+
 def main():
     import torch
 
@@ -414,6 +976,7 @@ def main():
     from vpic_tpu_torch.ops import fused_push as FP
     from vpic_tpu_torch.ops import fused_push3d as FP3
     from vpic_tpu_torch.ops import interp as I
+    from vpic_tpu_torch.ops import move_p as MP
     from vpic_tpu_torch.ops import residency as RES
     from vpic_tpu_torch.scripts import card as card_and_power
     from vpic_tpu_torch.scripts import cuda_ms, kernel_device_ms
@@ -426,12 +989,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {FP.KERNEL: (FP, "launches"), FP3.KERNEL: (FP3, "launches"),
+                MP.KERNEL: (MP, "launches"),
                 RES.KERNEL: (RES, "launches"), C.KERNEL: (C, "launches"),
                 C.COPY_KERNEL: (C, "copy_launches"),
                 C.MAILBOX_KERNEL: (C, "mailbox_launches"),
                 FF.KERNEL: (FF, "launches")}
-    sources = [FP.KERNEL, FP3.KERNEL, RES.KERNEL, C.KERNEL, C.MAILBOX_KERNEL,
-               FF.KERNEL]
+    sources = [FP.KERNEL, FP3.KERNEL, MP.KERNEL, RES.KERNEL, C.KERNEL,
+               C.MAILBOX_KERNEL, FF.KERNEL]
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
@@ -445,12 +1009,16 @@ def main():
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {name}: " + line.strip())
-    per_sm = (FP._kernel_lib().fused_push2d_blocks_per_sm(),
-              FP3._kernel_lib().fused_push3d_blocks_per_sm())
+    per_sm = [(FP._kernel_lib().fused_push2d_blocks_per_sm(w),
+               FP3._kernel_lib().fused_push3d_blocks_per_sm(w))
+              for w in (0, 1)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"occupancy: 1024-thread CUDA blocks per SM: fused_push2d "
-          f"{per_sm[0]}, fused_push3d {per_sm[1]} (registers and the "
-          f"deposit tile in shared memory; {sms} SMs)")
+          f"{per_sm[0][0]} (WALLS instance {per_sm[1][0]}), fused_push3d "
+          f"{per_sm[0][1]} (WALLS instance {per_sm[1][1]}) (registers and "
+          f"the deposit tile in shared memory; {sms} SMs)")
+    if min(min(p) for p in per_sm) < 1:
+        fail("a push kernel instance does not fit on an SM")
     results = {}
 
     # --- phase 3: 2-D kernel against its plain version ---
@@ -744,6 +1312,9 @@ def main():
         max_abs_err=max(x["max_abs_err"] for x in trio), ms=r["ms"][0],
         plain_ms=r["plain_ms"][0], bound_ms=bms, bound_by=bby,
         library_ms=None)
+
+    # --- phases 11-14: wall faces ---
+    results.update(wall_phases(torch, counters, card))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -120,5 +120,6 @@ def test_check3d_refuses():
         FP3.check3d(gt)
     _, gt = _grids()
     with pytest.raises(NotImplementedError):
-        FP3.check3d(gt.with_bc(0, pbc=GT.ABSORB_PARTICLES))
+        FP3.check3d(gt.with_bc(0, pbc=GT.P_REMOTE))
     FP3.check3d(gt)
+    FP3.check3d(gt.with_bc(0, pbc=GT.ABSORB_PARTICLES))   # a wall face

@@ -220,12 +220,17 @@ def test_residency_knob_and_refused_decks():
     assert st._residency_mode() == (False, 0)
     sj, st = build_pair()
     assert st._residency_mode() == sj._residency_mode() == (False, 0)
-    # 3-D grids the brick path does not take raise, naming what is missing
+    # 3-D grids the brick path does not take run the general path (no
+    # residency), as the JAX package runs them off the TPU
     sim = vt.Simulation(device="cpu")
     sim.define_units(1.0, 1.0)
     sim.define_timestep(0.01)
     sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (12, 16, 16))
     sim.define_material("vacuum", 1.0)
     sim.define_field_array()
+    assert sim._residency_mode() == (False, 0)
     with pytest.raises(NotImplementedError, match="general push path"):
-        sim.initialize()
+        FP3.check3d(sim.grid)
+    step = sim.make_step()
+    assert step.path == "general"
+    assert step(sim.initialize()).step == 1

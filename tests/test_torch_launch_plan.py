@@ -106,26 +106,50 @@ def test_species_groups_skip_empty_species(caps, groups):
 
 
 def test_species_table_layout():
-    """11 pointers a species in the entry points' order, the lane counts
-    and each species' qdt_2mc = q dt / (2 m c) and qsp = q as float32."""
+    """13 pointers a species in the entry points' order (the wall outputs
+    pend and pdisp last), the lane counts and each species' qdt_2mc =
+    q dt / (2 m c), qsp = q and qr8v = q r8V as float32."""
     g = harris.build(harris.HarrisParams(nx=16, ny=16, nppc=1, Lx=4.0,
                                          Ly=4.0), device="cpu").grid
     species = [_lanes(5, 0), _lanes(9, 1)]
     qms = [(-1.0, 1.0), (1.0, 25.0)]
     homes = [torch.zeros(1, dtype=torch.int32) for _ in species]
-    ptrs, n, qdt, qsp = FP.c_species_table(species, qms, g, homes=homes)
-    assert len(ptrs) == 22 and list(n) == [5, 9]
+    pends = [torch.zeros(sp.capacity, dtype=torch.int32) for sp in species]
+    disps = [torch.zeros((3, sp.capacity)) for sp in species]
+    ptrs, n, qdt, qsp, qr8v = FP.c_species_table(species, qms, g,
+                                                 homes=homes, pends=pends,
+                                                 disps=disps)
+    assert len(ptrs) == 26 and list(n) == [5, 9]
     order = ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w", "live")
     for k, sp in enumerate(species):
-        row = list(ptrs[11 * k: 11 * k + 11])
+        row = list(ptrs[13 * k: 13 * k + 13])
         assert row[:9] == [getattr(sp, f).data_ptr() for f in order]
         assert row[9] == homes[k].data_ptr() and row[10] is None
+        assert row[11:] == [pends[k].data_ptr(), disps[k].data_ptr()]
         q, m = qms[k]
         assert qdt[k] == np.float32((q * g.dt) / (2.0 * m * g.cvac))
         assert qsp[k] == np.float32(q)
+        assert qr8v[k] == np.float32(q * g.r8V)
     ptrs = FP.c_species_table(species, qms, g)[0]
-    assert ptrs[9] is None and ptrs[20] is None
+    assert all(ptrs[13 * k + j] is None for k in (0, 1)
+               for j in (9, 10, 11, 12))
     assert isinstance(ptrs, ctypes.Array)
+
+
+def test_wall_constants_read_the_particle_faces():
+    """The WALLS instance's arguments: each face's own code, the vbc table
+    and rhob; none without walls."""
+    import vpic_tpu_torch.ops.push as P
+    g = G.partition_periodic_box(0, 0, 0, 1, 2, 4, 8, 16, 1)
+    assert FP.wall_constants(g, None)[0] == 0
+    g = g.with_bc(0, pbc=G.ABSORB_PARTICLES).with_bc(
+        4, pbc=G.FIRST_CUSTOM_PBC)
+    walls = P.Walls(torch.zeros(g.nv), torch.zeros((g.nv, 6),
+                                                   dtype=torch.int32))
+    on, bc, vbc, rhob = FP.wall_constants(g, walls)
+    assert on == 1 and list(bc) == [G.ABSORB_PARTICLES, 0, 0, 0,
+                                    G.FIRST_CUSTOM_PBC, 0]
+    assert vbc == walls.vbc.data_ptr() and rhob == walls.rhob.data_ptr()
 
 
 def test_push_constants_read_the_particle_faces():

@@ -176,33 +176,50 @@ def test_streak_walk_crossings_match_jax(shape, max_streak):
         assert (pend_t == PT.UNFINISHED).any()
 
 
-@pytest.mark.parametrize("face_bc", ["absorb", "custom", "remote", "3d",
-                                     "half_periodic"])
+@pytest.mark.parametrize("face_bc", ["remote", "3d", "decomposed"])
 def test_supports_refuses(face_bc):
     g = GT.partition_periodic_box(0, 0, 0, 1, 1, 1, 8, 8, 1)
-    if face_bc == "absorb":
-        g = g.with_bc(0, pbc=GT.ABSORB_PARTICLES)
-    elif face_bc == "custom":
-        g = g.with_bc(3, pbc=GT.FIRST_CUSTOM_PBC)
-    elif face_bc == "remote":
+    if face_bc == "remote":
         g = g.with_bc(1, pbc=GT.P_REMOTE)
     elif face_bc == "3d":
         g = GT.partition_periodic_box(0, 0, 0, 1, 1, 1, 8, 8, 4)
     else:
-        g = g.with_bc(0, pbc=GT.REFLECT_PARTICLES)
+        g = GT.Grid(**{**g.__dict__, "topology": (2, 1, 1)})
     with pytest.raises(NotImplementedError):
         FP.supports(g)
 
 
+@pytest.mark.parametrize("face_bc", ["absorb", "custom", "half_periodic"])
+def test_supports_walls(face_bc):
+    """Faces the 2-D kernel takes through its WALLS instance (each face's
+    own rule): absorbing, custom, and an axis periodic on one side only;
+    a push without a Walls refuses them."""
+    g = GT.partition_periodic_box(0, 0, 0, 1, 1, 1, 8, 8, 1)
+    bc = dict(absorb=GT.ABSORB_PARTICLES, custom=GT.FIRST_CUSTOM_PBC,
+              half_periodic=GT.REFLECT_PARTICLES)[face_bc]
+    g = g.with_bc(0, pbc=bc)
+    assert FP.supports(g) and PT.has_walls(g)
+    sp = ST.SpeciesState(**{n: torch.zeros(8, dtype=torch.int32 if n == "i"
+                                           else torch.bool if n == "live"
+                                           else torch.float32)
+                            for n in ST.SPECIES_NAMES})
+    with pytest.raises(ValueError, match="walls"):
+        FP.fused_push_multi([sp], torch.zeros((g.nv, 18)),
+                            torch.zeros((g.nv, 12)), g, [(1.0, 1.0)])
+
+
 def test_advance_p_refuses_unported_faces(harris):
+    """What needs particle migration is refused: a remote face and a
+    decomposed grid (absorbing, custom and vbc faces are walked; see
+    test_torch_boundary.py)."""
     sj, st, s_jax, s_t, fj, ft = harris
     acc = torch.zeros((st.grid.nv, 12))
-    vbc = torch.zeros(st.grid.nv * 6, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="vbc"):
-        PT.advance_p(s_t.species[0], ft, st.grid, 1.0, 1.0, acc, vbc=vbc)
-    absorbing = st.grid.with_bc(0, pbc=GT.ABSORB_PARTICLES)
-    with pytest.raises(NotImplementedError, match="particle bc"):
-        PT.advance_p(s_t.species[0], ft, absorbing, 1.0, 1.0, acc)
+    remote = st.grid.with_bc(1, pbc=GT.P_REMOTE).with_bc(4, pbc=GT.P_REMOTE)
+    with pytest.raises(NotImplementedError, match="remote"):
+        PT.advance_p(s_t.species[0], ft, remote, 1.0, 1.0, acc)
+    sharded = GT.Grid(**{**st.grid.__dict__, "topology": (1, 2, 1)})
+    with pytest.raises(NotImplementedError, match="decomposed"):
+        PT.advance_p(s_t.species[0], ft, sharded, 1.0, 1.0, acc)
 
 
 def test_supports_harris():

@@ -5,12 +5,16 @@ are CUDA kernels written by hand for Hopper (csrc/fused_push2d.cu,
 fused_push3d.cu, merge_p.cu), and so are the JAX package's prototype
 kernels, the fused field trio and the residency compaction and mailbox
 (csrc/field_beb.cu, compact_block.cu, mailbox.cu), each with a plain
-PyTorch twin that CPU tensors use.  The entry points run on the CUDA card
+PyTorch twin that CPU tensors use; the pushes walk absorbing, custom and
+region particle faces too.  The entry points run on the CUDA card
 unless the caller asks for the CPU.  vpic_tpu stays the reference: every
 module here keeps its counterpart's name and is tested against it.
 
 Layer map:
   deck.Simulation     -- input-deck vocabulary + step orchestration
+  models.*            -- the ported decks (harris, lpi, weibel)
+  boundary            -- boundary_p: parked lanes to their handlers, leftovers
+  boundary_ops        -- custom particle BCs (reflux, absorb tally, link)
   ops.fused_push      -- bucket sort + the 2-D CUDA push kernel
   ops.fused_push3d    -- brick sort + the 3-D CUDA push kernel (outboxes)
   ops.residency       -- per-brick residency: exchange plan + CUDA merge
@@ -21,6 +25,7 @@ Layer map:
   ops.fields          -- Yee FDTD solver, div cleaners, BCs, synchronization
   ops.interp          -- interpolator / accumulator field<->particle interface
   interop             -- states carried across from/to vpic_tpu as numpy
+  utils.profile       -- step-phase timers, torch.profiler traces
 """
 
 from .grid import (ABSORB_FIELDS, ABSORB_PARTICLES, ANTI_SYMMETRIC, BOUNDARY,

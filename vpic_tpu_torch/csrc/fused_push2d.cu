@@ -4,9 +4,8 @@
 // Replaces: vpic_tpu/ops/pallas_push.py::_kernel (the Pallas TPU kernel that
 // fuses interpolation, the Boris push and the charge-conserving streak walk
 // with its current deposition, all species in one launch).  It computes what
-// vpic_tpu/ops/push.py advance_p computes for periodic and reflecting
-// particle faces; its plain PyTorch twin is
-// vpic_tpu_torch/ops/push.py::advance_p.
+// vpic_tpu/ops/push.py advance_p computes on one device, every particle face
+// included; its plain PyTorch twin is vpic_tpu_torch/ops/push.py::advance_p.
 //
 // One launch pushes every species (up to MAX_SPECIES; the species table is a
 // __grid_constant__ parameter).  Each CUDA block of LANES threads takes a
@@ -21,8 +20,13 @@
 //      kernel): coefficient read, Boris push, streak walk with its deposits
 //      into the tile, or into the (nv, 12) accumulator where the round's
 //      voxel lies outside it (a block of unsorted lanes, a periodic wrap),
-//      periodic wrap and reflecting bounce.  The particle arrays are updated
-//      IN PLACE; dead lanes pass through untouched;
+//      periodic wrap and reflecting bounce; in the WALLS instance also the
+//      absorbing, custom and per-voxel-face (vbc) rules (push_lane.cuh item
+//      5): a lane that meets one stops on the face, dies or is parked, and
+//      every lane's pend code and remaining displacement are written for
+//      boundary_p (pallas_push.py's wall pre-flag, :439-474, and the outlier
+//      replay it feeds, :972-1048, are what this replaces).  The particle
+//      arrays are updated IN PLACE; dead lanes pass through untouched;
 //   4. after a __syncthreads the block adds each non-zero tile entry into the
 //      accumulator with one atomic; the tile is a contiguous run of
 //      accumulator rows, so the flush is coalesced.
@@ -43,7 +47,10 @@
 // are most of what is left.  A tile centred on the lanes' mean voxel where
 // the range is too wide was 0.056 ms seven pushes after a sort, against
 // 0.043 for this cut.  64 registers a thread hold one 1024-thread block per
-// SM.  (NVIDIA H100 80GB HBM3, 700 W: device time from utils/push_timing.py,
+// SM.  The WALLS instance takes 0.0147 ms at the lpi deck (65,536 live
+// lanes in 131,072 slots; bytes bound 0.0025 ms), and harris runs the
+// instance without the wall code at the parent's time.  (NVIDIA H100 80GB
+// HBM3, 700 W: device time from utils/push_timing.py and chip_smoke.py,
 // the global-path shares from chip_smoke.py; PERF.md.)
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 without
@@ -78,6 +85,7 @@ struct Push2dArgs {
   unsigned long long* deposits;  // (2,)
 };
 
+template <bool WALLS>
 __global__ void __launch_bounds__(LANES)
     fused_push2d_kernel(const __grid_constant__ Push2dArgs p) {
   extern __shared__ float tile[];  // TILE_VOX x TILE_STRIDE
@@ -117,15 +125,16 @@ __global__ void __launch_bounds__(LANES)
 
   Rounds r = {0, 0};
   int unf = 0;
+  Lane L;
   if (live) {
-    Lane L;
     L.px = S.dx[k];
     L.py = S.dy[k];
     L.pz = S.dz[k];
     L.ux = S.ux[k];
     L.uy = S.uy[k];
     L.uz = S.uz[k];
-    if (vpic_push::push_lane(p.pp, T, S.qdt_2mc, S.qsp, v, S.w[k], L, r))
+    if (vpic_push::push_lane<WALLS>(p.pp, T, S.qdt_2mc, S.qsp, S.qr8v, v,
+                                    S.w[k], L, r))
       unf = 1;
     S.dx[k] = L.px;
     S.dy[k] = L.py;
@@ -135,6 +144,7 @@ __global__ void __launch_bounds__(LANES)
     S.uy[k] = L.uy;
     S.uz[k] = L.uz;
   }
+  if (WALLS && live) vpic_push::store_walls(S, k, L);
   __syncthreads();
   float* acc = p.pp.acc + (size_t)T.v0 * 12;
   for (int e = t; e < T.len * TILE_STRIDE; e += LANES) {
@@ -148,20 +158,27 @@ __global__ void __launch_bounds__(LANES)
 
 }  // namespace
 
-// ptrs: vpic_push::SPECIES_PTRS pointers per species (home and emit null);
-// n, blk0, qdt_2mc, qsp: one per species (host arrays); grid: CUDA blocks.
+// ptrs: vpic_push::SPECIES_PTRS pointers per species (home and emit null;
+// pend and pdisp null unless walls); n, blk0, qdt_2mc, qsp, qr8v: one per
+// species (host arrays); grid: CUDA blocks.  walls != 0 launches the WALLS
+// instance with the six domain faces' particle BC codes `bc` (host array),
+// the (nv, 6) vbc table (or null) and the (nv,) rhob.
 extern "C" int fused_push2d(int nsp, void* const* ptrs, const int* n,
                             const int* blk0, const float* qdt_2mc,
-                            const float* qsp, int grid, const float* fcoef,
-                            float* acc, int* unfinished,
+                            const float* qsp, const float* qr8v, int grid,
+                            const float* fcoef, float* acc, int* unfinished,
                             unsigned long long* deposits, float cdt_dx,
                             float cdt_dy, float cdt_dz, int nx, int ny,
                             int nz, int periodic_x, int periodic_y,
-                            int periodic_z, int max_streak, void* stream) {
+                            int periodic_z, int max_streak, int walls,
+                            const int* bc, const int* vbc, float* rhob,
+                            void* stream) {
   if (grid <= 0) return 0;
   if (nsp < 1 || nsp > MAX_SPECIES) return (int)cudaErrorInvalidValue;
+  if (walls && !rhob) return (int)cudaErrorInvalidValue;
   Push2dArgs a;
-  vpic_push::fill_species(a.sp, nsp, ptrs, n, blk0, nullptr, qdt_2mc, qsp);
+  vpic_push::fill_species(a.sp, nsp, ptrs, n, blk0, nullptr, qdt_2mc, qsp,
+                          qr8v);
   a.nsp = nsp;
   a.pp.fcoef = fcoef;
   a.pp.acc = acc;
@@ -175,24 +192,28 @@ extern "C" int fused_push2d(int nsp, void* const* ptrs, const int* n,
   a.pp.periodic_y = periodic_y;
   a.pp.periodic_z = periodic_z;
   a.pp.max_streak = max_streak;
+  for (int f = 0; f < 6; ++f) a.pp.bc[f] = walls ? bc[f] : 0;
+  a.pp.vbc = vbc;
+  a.pp.rhob = rhob;
   a.unfinished = unfinished;
   a.deposits = deposits;
+  auto kernel = walls ? &fused_push2d_kernel<true> : &fused_push2d_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_push2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TILE_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_BYTES);
   if (err != cudaSuccess) return (int)err;
-  fused_push2d_kernel<<<grid, LANES, TILE_BYTES, (cudaStream_t)stream>>>(a);
+  kernel<<<grid, LANES, TILE_BYTES, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// CUDA blocks of the kernel one SM holds at once (registers, shared memory).
-extern "C" int fused_push2d_blocks_per_sm() {
-  cudaFuncSetAttribute(fused_push2d_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+// CUDA blocks of the kernel (the WALLS instance if walls) one SM holds at
+// once (registers, shared memory).
+extern "C" int fused_push2d_blocks_per_sm(int walls) {
+  auto kernel = walls ? &fused_push2d_kernel<true> : &fused_push2d_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        TILE_BYTES);
   int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_push2d_kernel,
-                                                LANES, TILE_BYTES);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, LANES,
+                                                TILE_BYTES);
   return blocks;
 }
 

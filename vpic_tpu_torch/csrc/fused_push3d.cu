@@ -17,10 +17,16 @@
 //   0. when a layout block's home brick differs from the tile's, the block
 //      flushes the tile (below) and zeroes a new one: the home brick and a
 //      one-cell halo, 10^3 voxels x TILE_STRIDE floats = 52,000 B of dynamic
-//      shared memory.  Without a home map the block has no tile;
+//      shared memory.  Without a home map the block has no tile, and the
+//      grid need not be one the bricks tile (the deck's general path
+//      pushes such 3-D grids this way, every deposit on the global path);
 //   1. every live lane runs push_lane() (push_lane.cuh, shared with the 2-D
 //      kernel) on canonical voxels: coefficient read from the (nv, 18) table,
-//      Boris push, streak walk, periodic wrap and reflecting bounce.  A lane
+//      Boris push, streak walk, periodic wrap and reflecting bounce, and in
+//      the WALLS instance the absorbing, custom and per-voxel-face rules
+//      (pallas_push3d.py's pre-flag, :550-576, and region mark, :578-590,
+//      with the outlier replay they feed), writing every lane's pend code and
+//      remaining displacement for boundary_p.  A lane
 //      moves less than a cell a step, so a lane that starts in its home brick
 //      deposits inside the tile; the rounds of other lanes (leavers past the
 //      outbox cap that stay resident, lanes of a tight-packed block outside
@@ -30,7 +36,9 @@
 //      lanes pass through untouched;
 //   2. residency mode, per layout block and in lane order: a live lane whose
 //      final voxel is outside the home brick's 8^3 interior is a leaver
-//      (pallas_push3d.py:796-802).  The first out_cap leavers (block_scan.cuh:
+//      (pallas_push3d.py:796-802); a lane that died or was parked at a wall
+//      is not (the TPU kernel froze such lanes in their home brick for the
+//      replay, which runs before the exchange; here boundary_p does).  The first out_cap leavers (block_scan.cuh:
 //      warp ballots and __popc, no atomic counter -- plan_exchange's stable
 //      sort depends on the order) are copied into the block's outbox columns
 //      (dx, dy, dz, ux, uy, uz, w as float rows, the voxel as int32, a valid
@@ -57,8 +65,10 @@
 // __syncthreads per layout block, where the one 1024-thread block an SM
 // holds (64 registers a thread) waits for its slowest lane's walk (without
 // the epilogue the push takes 0.36-0.39 ms).  The run length moves nothing
-// measurable (one, two or four waves of the SMs).  (NVIDIA H100 80GB HBM3,
-// 700 W; utils/push_timing.py; PERF.md.)
+// measurable (one, two or four waves of the SMs).  The WALLS instance takes
+// 0.194 ms on a 32^3 x 32 ppc deck with an absorbing region (1,048,576
+// lanes, residency; bytes bound 0.030 ms).  (NVIDIA H100 80GB HBM3, 700 W;
+// utils/push_timing.py, chip_smoke.py; PERF.md.)
 //
 // __launch_bounds__(1024) caps the kernel at 64 registers a thread so a
 // 1024-thread block always launches; ptxas reports any spill.  Built with
@@ -123,6 +133,7 @@ __device__ __forceinline__ void flush_tile(const float* tile,
   }
 }
 
+template <bool WALLS>
 __global__ void __launch_bounds__(BLOCK)
     fused_push3d_kernel(const __grid_constant__ Push3dArgs p) {
   extern __shared__ float tile[];  // TILE_FLOATS
@@ -147,9 +158,11 @@ __global__ void __launch_bounds__(BLOCK)
   int unf = 0;
   for (int b = b_begin; b < b_end; ++b) {
     const int home = S.home ? S.home[b] : -1;  // uniform over the block
-    const int hx = home % nbx;
-    const int hy = (home / nbx) % nby;
-    const int hz = home / (nbx * nby);
+    // the home brick's indices, read only in residency mode (which has a
+    // home map); without one the grid may be one the bricks do not tile
+    const int hx = home >= 0 ? home % nbx : -1;
+    const int hy = home >= 0 ? (home / nbx) % nby : -1;
+    const int hz = home >= 0 ? home / (nbx * nby) : -1;
     if (home != cur) {
       __syncthreads();
       if (cur >= 0) {
@@ -173,6 +186,8 @@ __global__ void __launch_bounds__(BLOCK)
     const bool live = k < S.n && S.live[k];
     Lane L;
     L.xi = L.yi = L.zi = 0;
+    L.pend = vpic_push::DONE;
+    L.dead = false;
     if (live) {
       L.px = S.dx[k];
       L.py = S.dy[k];
@@ -180,8 +195,8 @@ __global__ void __launch_bounds__(BLOCK)
       L.ux = S.ux[k];
       L.uy = S.uy[k];
       L.uz = S.uz[k];
-      if (vpic_push::push_lane(p.pp, T, S.qdt_2mc, S.qsp, S.vox[k], S.w[k],
-                               L, r))
+      if (vpic_push::push_lane<WALLS>(p.pp, T, S.qdt_2mc, S.qsp, S.qr8v,
+                                      S.vox[k], S.w[k], L, r))
         ++unf;
       S.dx[k] = L.px;
       S.dy[k] = L.py;
@@ -191,9 +206,11 @@ __global__ void __launch_bounds__(BLOCK)
       S.uy[k] = L.uy;
       S.uz[k] = L.uz;
     }
+    if (WALLS && live) vpic_push::store_walls(S, k, L);
     if (!p.residency) continue;  // uniform over the launch
 
-    const bool leave = live && ((L.xi - 1) / B3 != hx ||
+    const bool stopped = WALLS && (L.dead || L.pend >= vpic_push::CUSTOM_BASE);
+    const bool leave = live && !stopped && ((L.xi - 1) / B3 != hx ||
                                 (L.yi - 1) / B3 != hy ||
                                 (L.zi - 1) / B3 != hz);
     int total;
@@ -237,22 +254,28 @@ __global__ void __launch_bounds__(BLOCK)
 }  // namespace
 
 // ptrs: vpic_push::SPECIES_PTRS pointers per species (home null without a
-// home map, emit null without residency); n, blk0, col0, qdt_2mc, qsp: one
-// per species (host arrays); grid: CUDA blocks, each serving `run` layout
-// blocks.
+// home map, emit null without residency, pend and pdisp null unless walls);
+// n, blk0, col0, qdt_2mc, qsp, qr8v: one per species (host arrays); grid:
+// CUDA blocks, each serving `run` layout blocks.  walls != 0 launches the
+// WALLS instance with the six domain faces' particle BC codes `bc` (host
+// array), the (nv, 6) vbc table (or null) and the (nv,) rhob.
 extern "C" int fused_push3d(
     int nsp, void* const* ptrs, const int* n, const int* blk0,
-    const int* col0, const float* qdt_2mc, const float* qsp, int grid,
-    int run, const float* fcoef, float* acc, int* unfinished,
-    unsigned long long* deposits, float cdt_dx, float cdt_dy, float cdt_dz,
-    int nx, int ny, int nz, int periodic_x, int periodic_y, int periodic_z,
-    int max_streak, int residency, float* obx_f, int* obx_vox,
-    bool* obx_valid, int obx_stride, int* ores, int out_cap, void* stream) {
+    const int* col0, const float* qdt_2mc, const float* qsp,
+    const float* qr8v, int grid, int run, const float* fcoef, float* acc,
+    int* unfinished, unsigned long long* deposits, float cdt_dx,
+    float cdt_dy, float cdt_dz, int nx, int ny, int nz, int periodic_x,
+    int periodic_y, int periodic_z, int max_streak, int residency,
+    float* obx_f, int* obx_vox, bool* obx_valid, int obx_stride, int* ores,
+    int out_cap, int walls, const int* bc, const int* vbc, float* rhob,
+    void* stream) {
   if (grid <= 0) return 0;
   if (nsp < 1 || nsp > MAX_SPECIES || run < 1) return (int)cudaErrorInvalidValue;
   if (out_cap < 0 || out_cap > BLOCK) return (int)cudaErrorInvalidValue;
+  if (walls && !rhob) return (int)cudaErrorInvalidValue;
   Push3dArgs a;
-  vpic_push::fill_species(a.sp, nsp, ptrs, n, blk0, col0, qdt_2mc, qsp);
+  vpic_push::fill_species(a.sp, nsp, ptrs, n, blk0, col0, qdt_2mc, qsp,
+                          qr8v);
   a.nsp = nsp;
   a.run = run;
   a.pp.fcoef = fcoef;
@@ -267,6 +290,9 @@ extern "C" int fused_push3d(
   a.pp.periodic_y = periodic_y;
   a.pp.periodic_z = periodic_z;
   a.pp.max_streak = max_streak;
+  for (int f = 0; f < 6; ++f) a.pp.bc[f] = walls ? bc[f] : 0;
+  a.pp.vbc = vbc;
+  a.pp.rhob = rhob;
   a.unfinished = unfinished;
   a.deposits = deposits;
   a.residency = residency;
@@ -276,22 +302,23 @@ extern "C" int fused_push3d(
   a.obx_stride = obx_stride;
   a.ores = ores;
   a.out_cap = out_cap;
+  auto kernel = walls ? &fused_push3d_kernel<true> : &fused_push3d_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_push3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TILE_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TILE_BYTES);
   if (err != cudaSuccess) return (int)err;
-  fused_push3d_kernel<<<grid, BLOCK, TILE_BYTES, (cudaStream_t)stream>>>(a);
+  kernel<<<grid, BLOCK, TILE_BYTES, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// CUDA blocks of the kernel one SM holds at once (registers, shared memory).
-extern "C" int fused_push3d_blocks_per_sm() {
-  cudaFuncSetAttribute(fused_push3d_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+// CUDA blocks of the kernel (the WALLS instance if walls) one SM holds at
+// once (registers, shared memory).
+extern "C" int fused_push3d_blocks_per_sm(int walls) {
+  auto kernel = walls ? &fused_push3d_kernel<true> : &fused_push3d_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        TILE_BYTES);
   int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_push3d_kernel,
-                                                BLOCK, TILE_BYTES);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BLOCK,
+                                                TILE_BYTES);
   return blocks;
 }
 

@@ -3,7 +3,7 @@
 // table, the deposit tiles and the launch counters they share.
 //
 // push_lane() computes, for one live lane, what vpic_tpu/ops/push.py
-// advance_p computes for periodic and reflecting particle faces:
+// advance_p computes on one device:
 //   1. read the lane's 18 interpolator coefficients straight from the
 //      (nv, 18) load_interpolator table;
 //   2. half E kick, relativistic Boris rotation (the reference's tan(theta/2)
@@ -16,9 +16,27 @@
 //      else with atomicAdd into the (nv, 12) float32 accumulator in device
 //      memory (the global path, counted);
 //   4. periodic faces wrap to the canonical cell and reflecting faces bounce in
-//      place, as push.py:528-543 does.  No particle ever sits in a ghost cell.
+//      place, as push.py:528-543 does.  No particle ever sits in a ghost cell;
+//   5. with WALLS (a compile-time switch: a launch on a deck without wall
+//      faces runs the instance without this code), every face crossing first
+//      reads the per-voxel-face code of its exit face from the (nv, 6) vbc
+//      table when there is one (push.py:455-496: reflect, absorb, or park
+//      with a ready-made pend code), then the domain face's rule: an
+//      absorbing face ends the lane's walk on the face and kills it, and its
+//      charge goes to rhob (accumulate_rhob, push.py:274-296, with float
+//      atomics); a custom face ends the walk on the face with pend =
+//      CUSTOM_BASE + face and the remaining displacement, for boundary_p.
+//      The TPU kernels could not stop one lane of a block mid-walk, so they
+//      froze every lane that might reach such a face (a p + 2 dp pre-flag
+//      with a margin, and a dilated per-cell mark smuggled into the
+//      interpolator table, pallas_push.py:439-474) and replayed those lanes
+//      through the general path (:972-1048).  Here one thread walks one lane
+//      and reads the face's rule where the walk meets it, which is what the
+//      general path does; corner crossings need no dilation.
 // The walk is dimension-general: z-crossings and periodic_z are handled like
 // x and y, so the 2-D kernel (nz == 1) and the 3-D kernel share it unchanged.
+// Steps 3-5 are walk_lane(), which move_p.cu also runs for the lanes a
+// boundary handler re-emits with a new remaining displacement.
 //
 // What bounds the deposits, and what the tiles do about it.  The TPU kernels
 // kept each block's accumulator in VMEM scratch and wrote it back once
@@ -60,7 +78,15 @@ constexpr unsigned FULL = 0xffffffffu;
 // Species one launch takes; the wrappers split more into several launches.
 constexpr int MAX_SPECIES = 8;
 // Per species, the pointers the entry points take, in this order.
-constexpr int SPECIES_PTRS = 11;
+constexpr int SPECIES_PTRS = 13;
+
+// Particle BC codes (vpic_tpu_torch/grid.py) and pend codes (ops/push.py).
+constexpr int P_PERIODIC = 0;
+constexpr int REFLECT_PARTICLES = -1;
+constexpr int ABSORB_PARTICLES = -2;
+constexpr int DONE = -1;
+constexpr int UNFINISHED = 6;
+constexpr int CUSTOM_BASE = 8;
 
 // One species' lanes and constants in the launch's species table (passed by
 // value as a __grid_constant__ kernel parameter: no copy to the device).
@@ -72,22 +98,27 @@ struct Species {
   float* ux;
   float* uy;
   float* uz;
-  const float* w;
-  const bool* live;
+  float* w;         // written only where WALLS kills a lane
+  bool* live;       // (the same)
   const int* home;  // 3-D: (nblocks,) layout block -> home brick, or null
   bool* emit;       // 3-D residency: (n,) emit marks, else null
+  int* pend;        // WALLS: (n,) pend codes out, else null
+  float* pdisp;     // WALLS: (3, n) remaining displacement out, else null
   int n;            // lanes
   int blk0;         // this species' first CUDA block in the launch
   int obx_col0;     // 3-D residency: this species' first outbox column
   float qdt_2mc;
   float qsp;
+  float qr8v;       // qsp * r8V: an absorbed lane's rhob charge per weight
 };
 
 // Fills the species table from an entry point's host arrays: ptrs holds
-// SPECIES_PTRS pointers per species (dx dy dz vox ux uy uz w live home emit).
+// SPECIES_PTRS pointers per species (dx dy dz vox ux uy uz w live home emit
+// pend pdisp).
 inline void fill_species(Species* sp, int nsp, void* const* ptrs,
                          const int* n, const int* blk0, const int* col0,
-                         const float* qdt_2mc, const float* qsp) {
+                         const float* qdt_2mc, const float* qsp,
+                         const float* qr8v) {
   for (int s = 0; s < nsp; ++s) {
     void* const* q = ptrs + (size_t)s * SPECIES_PTRS;
     Species& S = sp[s];
@@ -98,15 +129,18 @@ inline void fill_species(Species* sp, int nsp, void* const* ptrs,
     S.ux = (float*)q[4];
     S.uy = (float*)q[5];
     S.uz = (float*)q[6];
-    S.w = (const float*)q[7];
-    S.live = (const bool*)q[8];
+    S.w = (float*)q[7];
+    S.live = (bool*)q[8];
     S.home = (const int*)q[9];
     S.emit = (bool*)q[10];
+    S.pend = (int*)q[11];
+    S.pdisp = (float*)q[12];
     S.n = n[s];
     S.blk0 = blk0[s];
     S.obx_col0 = col0 ? col0[s] : 0;
     S.qdt_2mc = qdt_2mc[s];
     S.qsp = qsp[s];
+    S.qr8v = qr8v[s];
   }
 }
 
@@ -125,13 +159,23 @@ struct PushParams {
   int nx, ny, nz;
   int periodic_x, periodic_y, periodic_z;
   int max_streak;
+  // WALLS only: each domain face's particle BC code (faces -x -y -z +x +y
+  // +z), the (nv, 6) per-voxel-face code table or null, the (nv,) rhob
+  int bc[6];
+  const int* vbc;
+  float* rhob;
 };
 
-// One lane's offsets, momentum and voxel coordinates (in and out).
+// One lane's offsets, momentum and voxel coordinates (in and out); with
+// WALLS also its pend code, remaining displacement and whether it died at
+// an absorbing face.
 struct Lane {
   float px, py, pz;
   float ux, uy, uz;
   int xi, yi, zi;
+  int pend;
+  float dpx, dpy, dpz;
+  bool dead;
 };
 
 // A thread's deposit rounds: those that took the global path, and all.
@@ -243,69 +287,125 @@ __device__ __forceinline__ void cross(float& pos, float& disp, float& u,
   }
 }
 
-// Push one live lane of weight w sitting in linear voxel v, with the
-// species constants qdt_2mc and qsp, depositing into `tile` where it holds
-// the round's voxel.  On entry L holds the lane's offsets and momentum; on
-// exit its new offsets, momentum and voxel coordinates.  Adds the lane's
-// rounds to `r`.  Returns true when the lane is still walking after
-// max_streak rounds (an unfinished streak).
-template <class Tile>
-__device__ __forceinline__ bool push_lane(const PushParams& p,
-                                          const Tile& tile, float qdt_2mc,
-                                          float qsp, int v, float w, Lane& L,
+// What a crossing did to the lane's walk (WALLS).
+enum Crossed { WALK_ON = 0, ABSORBED = 1, PARKED = 2 };
+
+// One face crossing with every one-device rule (push.py:443-601): the
+// particle is put on the face; the exit face's per-voxel code (vbc, read at
+// the voxel `cur` being left) comes first, then the domain: a move into the
+// neighbour cell, a periodic wrap, a reflecting bounce, an absorbing face
+// (ABSORBED: the lane stays on the face) or a custom face (PARKED, with
+// pend = CUSTOM_BASE + face).
+__device__ __forceinline__ Crossed cross_walls(const PushParams& p, int axis,
+                                               float& pos, float& disp,
+                                               float& u, int& coord,
+                                               float dir, int n, int cur,
+                                               int& pend) {
+  pos = dir;
+  const int face = axis + (dir > 0.0f ? 3 : 0);
+  if (p.vbc) {
+    const int code = __ldg(p.vbc + (size_t)cur * 6 + face);
+    if (code == REFLECT_PARTICLES) {
+      u = -u;
+      disp = -disp;
+      return WALK_ON;
+    }
+    if (code == ABSORB_PARTICLES) return ABSORBED;
+    if (code >= CUSTOM_BASE) {
+      pend = code;
+      return PARKED;
+    }
+  }
+  const int newc = coord + (dir > 0.0f ? 1 : -1);
+  if (newc >= 1 && newc <= n) {
+    coord = newc;
+    pos = -pos;
+    return WALK_ON;
+  }
+  const int bc = p.bc[face];
+  if (bc == P_PERIODIC) {
+    coord = newc < 1 ? n : 1;
+    pos = -pos;
+    return WALK_ON;
+  }
+  if (bc == REFLECT_PARTICLES) {
+    u = -u;
+    disp = -disp;
+    return WALK_ON;
+  }
+  if (bc == ABSORB_PARTICLES) return ABSORBED;
+  pend = CUSTOM_BASE + face;
+  return PARKED;
+}
+
+// accumulate_rhob (push.py:274-296, rho_p.cc:126-211) of one lane of charge
+// q = qsp * r8V * w at offsets (px, py, pz) in voxel (x, y, z): the
+// trilinear node weights in VPIC's order, doubled on domain-edge nodes,
+// added with float atomics (nodes past the mesh are dropped).  Each weight
+// is rounded op by op as in the plain version.
+__device__ __forceinline__ void deposit_rhob(const PushParams& p, int x, int y,
+                                             int z, float px, float py,
+                                             float pz, float q) {
+  const int NX = p.nx + 2;
+  const int SZ = NX * (p.ny + 2);
+  const int NV = SZ * (p.nz + 2);
+  float w6 = __fsub_rn(q, __fmul_rn(px, q));
+  float w7 = __fadd_rn(q, __fmul_rn(px, q));
+  float w4 = __fsub_rn(w6, __fmul_rn(py, w6));
+  float w5 = __fsub_rn(w7, __fmul_rn(py, w7));
+  w6 = __fadd_rn(w6, __fmul_rn(py, w6));
+  w7 = __fadd_rn(w7, __fmul_rn(py, w7));
+  float wt[8];
+  wt[0] = __fsub_rn(w4, __fmul_rn(pz, w4));
+  wt[1] = __fsub_rn(w5, __fmul_rn(pz, w5));
+  wt[2] = __fsub_rn(w6, __fmul_rn(pz, w6));
+  wt[3] = __fsub_rn(w7, __fmul_rn(pz, w7));
+  wt[4] = __fadd_rn(w4, __fmul_rn(pz, w4));
+  wt[5] = __fadd_rn(w5, __fmul_rn(pz, w5));
+  wt[6] = __fadd_rn(w6, __fmul_rn(pz, w6));
+  wt[7] = __fadd_rn(w7, __fmul_rn(pz, w7));
+  const int v = x + NX * (y + (p.ny + 2) * z);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int hx = j & 1, hy = (j >> 1) & 1, hz = j >> 2;
+    float f = 1.0f;
+    if ((z == 1 && !hz) || (z == p.nz && hz)) f *= 2.0f;
+    if ((y == 1 && !hy) || (y == p.ny && hy)) f *= 2.0f;
+    if ((x == 1 && !hx) || (x == p.nx && hx)) f *= 2.0f;
+    const int node = v + hx + NX * hy + SZ * hz;
+    if (node < NV) atomicAdd(p.rhob + node, wt[j] * f);
+  }
+}
+
+// Walk one live lane's displacement (dpx, dpy, dpz), in voxel offsets, from
+// L's offsets and momentum in voxel (xi, yi, zi), for at most max_streak
+// rounds (push.py streak_walk), depositing the currents of charge q0 (qsp *
+// w) into `tile` where it holds the round's voxel.  On exit L holds the new
+// offsets, momentum and voxel coordinates, and with WALLS its pend code
+// (L.pend on entry, UNFINISHED, or a custom code), remaining displacement
+// and whether it died at an absorbing face (its rhob deposit of charge
+// qr8v * w made).  Adds the lane's rounds to `r`.  Returns true when the
+// lane is still walking after max_streak rounds.  push_lane() calls it
+// after the Boris push; move_p.cu calls it to walk on the lanes a boundary
+// handler re-emitted.
+template <bool WALLS, class Tile>
+__device__ __forceinline__ bool walk_lane(const PushParams& p,
+                                          const Tile& tile, float q0,
+                                          float qr8v, float w, float dpx,
+                                          float dpy, float dpz, int xi,
+                                          int yi, int zi, Lane& L,
                                           Rounds& r) {
   const int NX = p.nx + 2;
   const int NY = p.ny + 2;
-  const int SZ = NX * NY;
-
   float px = L.px;
   float py = L.py;
   float pz = L.pz;
-
-  const float* row = p.fcoef + (size_t)v * 18;
-  float c[18];
-#pragma unroll
-  for (int j = 0; j < 18; ++j) c[j] = __ldg(row + j);
-
-  const float qdt = qdt_2mc;
-  const float hax = qdt * ((c[0] + py * c[1]) + pz * (c[2] + py * c[3]));
-  const float hay = qdt * ((c[4] + pz * c[5]) + px * (c[6] + pz * c[7]));
-  const float haz = qdt * ((c[8] + px * c[9]) + py * (c[10] + px * c[11]));
-  const float cbx = c[12] + px * c[13];
-  const float cby = c[14] + py * c[15];
-  const float cbz = c[16] + pz * c[17];
-
-  float ux = L.ux + hax;
-  float uy = L.uy + hay;
-  float uz = L.uz + haz;
-  const float v0 = qdt * (1.0f / sqrtf(1.0f + (ux * ux + (uy * uy + uz * uz))));
-  const float v1 = cbx * cbx + (cby * cby + cbz * cbz);
-  const float v2 = (v0 * v0) * v1;
-  const float v3 = v0 * (1.0f + v2 * (ONE_THIRD + v2 * TWO_FIFTEENTHS));
-  float v4 = v3 / (1.0f + v1 * (v3 * v3));
-  v4 = v4 + v4;
-  const float t0 = ux + v3 * (uy * cbz - uz * cby);
-  const float t1 = uy + v3 * (uz * cbx - ux * cbz);
-  const float t2 = uz + v3 * (ux * cby - uy * cbx);
-  ux = ux + v4 * (t1 * cbz - t2 * cby);
-  uy = uy + v4 * (t2 * cbx - t0 * cbz);
-  uz = uz + v4 * (t0 * cby - t1 * cbx);
-  ux = ux + hax;
-  uy = uy + hay;
-  uz = uz + haz;
-
-  const float rg = 1.0f / sqrtf(1.0f + (ux * ux + (uy * uy + uz * uz)));
-  float dpx = ux * p.cdt_dx * rg;
-  float dpy = uy * p.cdt_dy * rg;
-  float dpz = uz * p.cdt_dz * rg;
-
-  int zi = v / SZ;
-  const int rem = v - zi * SZ;
-  int yi = rem / NX;
-  int xi = rem - yi * NX;
-
-  const float q0 = qsp * w;
+  float ux = L.ux;
+  float uy = L.uy;
+  float uz = L.uz;
   bool active = true;
+  int pend = L.pend;
+  bool dead = false;
   for (int round = 0; round < p.max_streak; ++round) {
     const float dirx = dpx > 0.0f ? 1.0f : -1.0f;
     const float diry = dpy > 0.0f ? 1.0f : -1.0f;
@@ -353,7 +453,21 @@ __device__ __forceinline__ bool push_lane(const PushParams& p,
       active = false;
       break;
     }
-    if (axis == 0) {
+    if (WALLS) {
+      Crossed how;
+      if (axis == 0) {
+        how = cross_walls(p, 0, px, dpx, ux, xi, dirx, p.nx, cur, pend);
+      } else if (axis == 1) {
+        how = cross_walls(p, 1, py, dpy, uy, yi, diry, p.ny, cur, pend);
+      } else {
+        how = cross_walls(p, 2, pz, dpz, uz, zi, dirz, p.nz, cur, pend);
+      }
+      if (how != WALK_ON) {
+        dead = how == ABSORBED;
+        active = false;
+        break;
+      }
+    } else if (axis == 0) {
       cross(px, dpx, ux, xi, dirx, p.nx, p.periodic_x);
     } else if (axis == 1) {
       cross(py, dpy, uy, yi, diry, p.ny, p.periodic_y);
@@ -371,7 +485,104 @@ __device__ __forceinline__ bool push_lane(const PushParams& p,
   L.xi = xi;
   L.yi = yi;
   L.zi = zi;
+  if (WALLS) {
+    L.pend = active ? UNFINISHED : pend;
+    L.dpx = dpx;
+    L.dpy = dpy;
+    L.dpz = dpz;
+    L.dead = dead;
+    if (dead) deposit_rhob(p, xi, yi, zi, px, py, pz, __fmul_rn(qr8v, w));
+  }
   return active;
+}
+
+// Push one live lane of weight w sitting in linear voxel v, with the
+// species constants qdt_2mc, qsp and qr8v (qsp * r8V), depositing into
+// `tile` where it holds the round's voxel.  On entry L holds the lane's
+// offsets and momentum; on exit its new offsets, momentum and voxel
+// coordinates, and with WALLS its pend code (DONE, UNFINISHED or a custom
+// code), remaining displacement and whether it died at an absorbing face
+// (its rhob deposit made).  Adds the lane's rounds to `r`.  Returns true
+// when the lane is still walking after max_streak rounds (an unfinished
+// streak).
+template <bool WALLS, class Tile>
+__device__ __forceinline__ bool push_lane(const PushParams& p,
+                                          const Tile& tile, float qdt_2mc,
+                                          float qsp, float qr8v, int v,
+                                          float w, Lane& L, Rounds& r) {
+  const int NX = p.nx + 2;
+  const int NY = p.ny + 2;
+  const int SZ = NX * NY;
+
+  float px = L.px;
+  float py = L.py;
+  float pz = L.pz;
+
+  const float* row = p.fcoef + (size_t)v * 18;
+  float c[18];
+#pragma unroll
+  for (int j = 0; j < 18; ++j) c[j] = __ldg(row + j);
+
+  const float qdt = qdt_2mc;
+  const float hax = qdt * ((c[0] + py * c[1]) + pz * (c[2] + py * c[3]));
+  const float hay = qdt * ((c[4] + pz * c[5]) + px * (c[6] + pz * c[7]));
+  const float haz = qdt * ((c[8] + px * c[9]) + py * (c[10] + px * c[11]));
+  const float cbx = c[12] + px * c[13];
+  const float cby = c[14] + py * c[15];
+  const float cbz = c[16] + pz * c[17];
+
+  float ux = L.ux + hax;
+  float uy = L.uy + hay;
+  float uz = L.uz + haz;
+  const float v0 = qdt * (1.0f / sqrtf(1.0f + (ux * ux + (uy * uy + uz * uz))));
+  const float v1 = cbx * cbx + (cby * cby + cbz * cbz);
+  const float v2 = (v0 * v0) * v1;
+  const float v3 = v0 * (1.0f + v2 * (ONE_THIRD + v2 * TWO_FIFTEENTHS));
+  float v4 = v3 / (1.0f + v1 * (v3 * v3));
+  v4 = v4 + v4;
+  const float t0 = ux + v3 * (uy * cbz - uz * cby);
+  const float t1 = uy + v3 * (uz * cbx - ux * cbz);
+  const float t2 = uz + v3 * (ux * cby - uy * cbx);
+  ux = ux + v4 * (t1 * cbz - t2 * cby);
+  uy = uy + v4 * (t2 * cbx - t0 * cbz);
+  uz = uz + v4 * (t0 * cby - t1 * cbx);
+  ux = ux + hax;
+  uy = uy + hay;
+  uz = uz + haz;
+
+  const float rg = 1.0f / sqrtf(1.0f + (ux * ux + (uy * uy + uz * uz)));
+  const float dpx = ux * p.cdt_dx * rg;
+  const float dpy = uy * p.cdt_dy * rg;
+  const float dpz = uz * p.cdt_dz * rg;
+
+  const int zi = v / SZ;
+  const int rem = v - zi * SZ;
+  const int yi = rem / NX;
+  const int xi = rem - yi * NX;
+
+  L.ux = ux;
+  L.uy = uy;
+  L.uz = uz;
+  L.pend = DONE;
+  return walk_lane<WALLS>(p, tile, qsp * w, qr8v, w, dpx, dpy, dpz, xi, yi,
+                          zi, L, r);
+}
+
+// The WALLS per-lane outputs of lane k of a species, live when the push
+// began: its pend code and remaining displacement, and live = false, w = 0
+// where it died at an absorbing face.  Slots dead on entry are not written:
+// their pend codes and displacement are undefined, and every reader masks
+// them with the live flags.
+__device__ __forceinline__ void store_walls(const Species& S, int k,
+                                            const Lane& L) {
+  S.pend[k] = L.pend;
+  S.pdisp[k] = L.dpx;
+  S.pdisp[(size_t)S.n + k] = L.dpy;
+  S.pdisp[2 * (size_t)S.n + k] = L.dpz;
+  if (L.dead) {
+    S.live[k] = false;
+    S.w[k] = 0.0f;
+  }
 }
 
 // Adds every thread's rounds and unfinished lanes into the launch's counters

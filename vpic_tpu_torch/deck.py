@@ -1,6 +1,6 @@
 """The deck layer: VPIC's input-deck vocabulary as a Python builder
-(counterpart of ``vpic_tpu/deck.py``, for what the 2-D main path and the
-3-D brick/residency path use).
+(counterpart of ``vpic_tpu/deck.py``, for one device: the 2-D and 3-D
+kernel paths, the 3-D residency path and the general path).
 
 A deck is ordinary Python driving a ``Simulation`` builder with the
 reference's vocabulary (define_units, define_timestep,
@@ -9,6 +9,10 @@ define_field_array, define_species, set_region_field, inject_particle, ...).
 ``initialize()`` turns it into a ``SimState`` of tensors on
 ``Simulation.device`` -- the CUDA card unless the caller asks for the CPU --
 and ``make_advance()`` returns the step (src/vpic/advance.cc:15-208).
+Particle boundaries: built-in and custom (``boundary_ops`` handlers) domain
+faces (set_domain_particle_bc, define_absorbing_grid), region surfaces
+(set_region_particle_bc, a per-voxel-face code table), and the user field
+and current injection hooks.
 
 Host-side staging (particle injection, region rasterization) runs in numpy
 at double precision exactly like the JAX package, so the same deck and seed
@@ -28,7 +32,10 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from .grid import Grid, partition_periodic_box
+from . import boundary as B
+from .grid import (ABSORB_PARTICLES, FIRST_CUSTOM_PBC, REFLECT_PARTICLES,
+                   Grid, partition_absorbing_box, partition_metal_box,
+                   partition_periodic_box)
 from .ops import fields as F
 from .ops import fused_push as FP
 from .ops import fused_push3d as FP3
@@ -81,6 +88,7 @@ class Simulation:
 
     def __init__(self, seed: int = 0, device="cuda"):
         self.device = torch.device(device)
+        self.seed = seed
         self.grid: Optional[Grid] = None
         self.materials: List[Material] = []
         self.species: List[_StagedSpecies] = []
@@ -97,6 +105,9 @@ class Simulation:
         self.num_div_e_round = 2
         self.num_div_b_round = 2
         self.max_streak = 4
+        # handler runs after the (one-device: empty) migration rounds of
+        # the general path's boundary_p (vpic.cc:79)
+        self.num_comm_round = 3
         # bucket-sort cadence of the fused path (vpic_tpu's
         # pallas_sort_interval; the per-species sort_interval drives only
         # the JAX package's general path)
@@ -104,6 +115,20 @@ class Simulation:
         # host reads of the device made by the step (the residency trigger)
         self.host_syncs = 0
         self._field_ops: list = []
+        # User hooks (deck sections): (FieldState, step) -> FieldState; they
+        # may update the fields in place and return them.
+        self.user_field_injection = None
+        self.user_current_injection = None
+        # registry key -> custom particle-BC handler: 0-5 domain faces,
+        # 6 + 6 h + face region surface h (boundary_ops)
+        self.pbc_handlers: dict = {}
+        # per-voxel-face particle-BC codes (grid.h:116-121 neighbor
+        # analogue): (NZ, NY, NX, 6) int32, or None
+        self._vbc = None
+        self._n_region_pbc = 0
+        # the handlers' randoms: made and seeded from ``seed`` at
+        # initialize(), on ``device``
+        self._generator = None
         self._entropy = np.random.RandomState(seed)
         self._rank = 0
 
@@ -139,16 +164,80 @@ class Simulation:
             dt=self._dt, cvac=self._cvac, eps0=self._eps0)
         return self.grid
 
+    def define_absorbing_grid(self, lo, hi, n, topology=(1, 1, 1),
+                              pbc=ABSORB_PARTICLES):
+        self.grid = partition_absorbing_box(
+            *lo, *hi, *[int(v) for v in n], *[int(v) for v in topology],
+            pbc=pbc, dt=self._dt, cvac=self._cvac, eps0=self._eps0)
+        return self.grid
+
+    def define_reflecting_grid(self, lo, hi, n, topology=(1, 1, 1)):
+        self.grid = partition_metal_box(
+            *lo, *hi, *[int(v) for v in n], *[int(v) for v in topology],
+            dt=self._dt, cvac=self._cvac, eps0=self._eps0)
+        return self.grid
+
     def set_domain_field_bc(self, face: int, bc: int):
         self.grid = self.grid.with_bc(face, fbc=bc)
 
     def set_domain_particle_bc(self, face: int, bc):
-        """bc: a built-in particle-BC code.  Custom handlers come with the
-        boundary layer."""
+        """bc: a built-in code (reflect/absorb/...) or a custom handler
+        built by ``boundary_ops`` (maxwellian_reflux, absorb_tally, ...),
+        registered under key ``face`` (vpic.h:510-530)."""
         if callable(bc):
-            raise NotImplementedError(
-                "custom particle-BC handlers are not ported yet")
+            self.pbc_handlers[face] = bc
+            bc = FIRST_CUSTOM_PBC - len(self.pbc_handlers) + 1
         self.grid = self.grid.with_bc(face, pbc=bc)
+
+    def set_region_particle_bc(self, region, bc):
+        """Attach a particle BC to the surface of an interior region (the
+        reference's per-voxel neighbor-table encoding, grid.h:116-121,
+        decoded at boundary_p.cc:196-255).  Every voxel face between a cell
+        inside the region and a cell outside it gets the code on both sides
+        (the exit face of either cell).  ``bc`` is REFLECT_PARTICLES,
+        ABSORB_PARTICLES, or a ``boundary_ops`` handler, registered under
+        keys 6 + 6 h + face and parked with pend CUSTOM_BASE + key."""
+        g = self.grid
+        if callable(bc):
+            h = self._n_region_pbc
+            self._n_region_pbc += 1
+            for f in range(6):
+                self.pbc_handlers[6 + 6 * h + f] = bc
+            codes = [P.CUSTOM_BASE + 6 + 6 * h + f for f in range(6)]
+        else:
+            if int(bc) not in (ABSORB_PARTICLES, REFLECT_PARTICLES):
+                raise ValueError("set_region_particle_bc: bc must be "
+                                 "ABSORB/REFLECT or a handler")
+            codes = [int(bc)] * 6
+        if g.sharded:
+            raise NotImplementedError("decomposed grids are not ported yet")
+        if self._vbc is None:
+            self._vbc = np.zeros((g.NZ, g.NY, g.NX, 6), np.int32)
+        xc = g.x0 + g.dx * (np.arange(g.NX) - 0.5)
+        yc = g.y0 + g.dy * (np.arange(g.NY) - 0.5)
+        zc = g.z0 + g.dz * (np.arange(g.NZ) - 0.5)
+        Z, Y, X = np.meshgrid(zc, yc, xc, indexing="ij")
+        inside = np.vectorize(region, otypes=[bool])(X, Y, Z)
+        vb = self._vbc
+        for ax in range(3):
+            a = 2 - ax                   # grid axis -> array axis
+            last = (slice(None),) * a + (-1,)
+            # neighbour in +ax: nb_hi[v] = inside[v + 1]
+            nb_hi = np.roll(inside, -1, axis=a)
+            nb_hi[last] = inside[last]
+            face_hi = inside != nb_hi    # an in/out face above v
+            # exit face ax + 3 seen from v, face ax seen from v + 1
+            vb[..., ax + 3][face_hi] = codes[ax + 3]
+            lo_of_upper = np.roll(face_hi, 1, axis=a)
+            lo_of_upper[(slice(None),) * a + (0,)] = False
+            vb[..., ax][lo_of_upper] = codes[ax]
+
+    def _local_vbc(self):
+        """The (nv, 6) int32 per-voxel-face code table on the device, or
+        None."""
+        if self._vbc is None:
+            return None
+        return torch.from_numpy(self._vbc.reshape(-1, 6)).to(self.device)
 
     # ---------------- materials / field array ----------------
 
@@ -355,7 +444,7 @@ class Simulation:
         g = self.grid
         if g.sharded:
             raise NotImplementedError("decomposed grids are not ported yet")
-        fused3, _ = self._fused_mode()
+        path, _ = self._path()
         m = self._material_coeffs()
         f = self._build_initial_fields()
         species, urbs = self._pack_species()
@@ -381,11 +470,18 @@ class Simulation:
         species = tuple(
             P.uncenter_p(sp, fcoef, g, st.params.q, st.params.m)
             for st, sp in zip(self.species, species))
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(self.seed)
         # lanes left walking after max_streak rounds, summed over steps
         i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                          device=self.device)
         diag = {"unfinished": i32()}
-        if fused3:
+        # the handlers' counters, made once so the key set stays fixed
+        sp_params = [st.params for st in self.species]
+        for key, h in self.pbc_handlers.items():
+            if hasattr(h, "diag_init"):
+                diag.update(h.diag_init(sp_params, key, self.device))
+        if path == "push3d":
             res_on, res_slack = self._residency_mode()
             if res_on:
                 # residency works on [0, E) extent slices: the home maps
@@ -407,60 +503,85 @@ class Simulation:
     # ---------------- the step (advance.cc:15-208) ----------------
 
     def _live_bounds(self):
-        """Per-species bound on the live slots: the injection count.  Nothing
-        in the port's paths grows the live set or moves a live lane past it
-        (no migration, emission, injection or collisions; the sorts pack
-        live lanes first), so sorts cover these extents only."""
+        """Per-species bound on the live slots: the injection count.  On the
+        kernel paths nothing grows the live set or moves a live lane past
+        it (no migration, emission, injection or collisions; absorbing
+        faces and the in-place handlers kill or move lanes in their slots;
+        the sorts pack live lanes first), so sorts cover these extents
+        only."""
         return [max(st.count, 1) for st in self.species]
 
-    def _fused_mode(self):
-        """(fused3, sortK): nz > 1 takes the 3-D brick path, whose brick
-        sort runs every step (sortK 1, vpic_tpu/deck.py:991-996) unless
-        residency replaces it; nz == 1 the 2-D path with a bucket sort
-        every pallas_sort_interval steps (2-D brick charts,
-        pallas_chart2d, are not ported).  Raises for decks neither path
-        runs."""
+    def _path(self):
+        """(path, sortK), decided from the deck: "push3d" for nz > 1 grids
+        the bricks tile (a brick sort every step, sortK 1, unless residency
+        replaces it; vpic_tpu/deck.py:991-996), "push2d" for nz == 1 with a
+        bucket sort every pallas_sort_interval steps (2-D brick charts,
+        pallas_chart2d, are not ported), and "general" for the other 3-D
+        grids (deck.py:1446-1496: sort_p on each species' sort_interval,
+        the push of every species, boundary_p with its num_comm_round
+        handler runs; the push is fused_push3d_multi without home maps,
+        the 3-D kernel on the card).  Raises for what no path runs: remote
+        faces, decomposed grids, and a handler that is not in place (none
+        is ported; such a handler, an emitter, may put lanes past the
+        injection bound the extent sorts rely on)."""
         g = self.grid
+        P.check_particle_bcs(g)
+        for key, h in self.pbc_handlers.items():
+            if not getattr(h, "in_place", False):
+                raise NotImplementedError(
+                    f"particle bc handler {key} is not in place: handlers "
+                    "that move or create live slots are not ported yet")
+        max_cap = max((st.params.capacity for st in self.species),
+                      default=0)
         if g.nz > 1:
-            FP3.check3d(g, max((st.params.capacity for st in self.species),
-                               default=0))
-            return True, 1
+            if FP3.supports3d(g, max_cap):
+                return "push3d", 1
+            FP3.check3d(g, max_cap, bricks=False)
+            return "general", 1
         FP.supports(g)
-        return False, max(1, self.pallas_sort_interval)
+        return "push2d", max(1, self.pallas_sort_interval)
 
     def _residency_mode(self):
         """(enabled, slack): per-brick bucketed residency (ops/residency) on
-        3-D decks with capacity headroom for at least one slack block per
-        brick (vpic_tpu's pallas_residency="auto"; its forced settings are
-        not ported).  The port has no lane-reordering op (emitters,
-        collisions, injection, migration, custom handlers), so nothing else
-        disables it."""
+        3-D kernel-path decks with capacity headroom for at least one slack
+        block per brick (vpic_tpu's pallas_residency="auto"; its forced
+        settings are not ported).  The port has no lane-reordering op
+        (emitters, collisions, injection, migration), and the kernel path
+        takes only in-place handlers, so nothing else disables it."""
         g = self.grid
-        if g is None or g.nz == 1 or g.sharded:
+        if g is None or g.nz == 1 or g.sharded or \
+                self._path()[0] != "push3d":
             return False, 0
         slack = RES.slack_blocks(g, self._live_bounds(),
                                  [st.params.capacity for st in self.species])
         return (True, slack) if slack >= 1 else (False, 0)
 
     def make_advance(self) -> Callable[[SimState], SimState]:
-        """The step: the push of every species with its sort, accumulator
-        unload, advance_b / advance_e / advance_b, then the cleaners on
-        their cadence.  The step updates the state's field tensors in place
-        and returns the new SimState.  The residency step updates the
-        species tensors in place too, on both devices: the merge writes
-        into them and a rebucket copies its sort into them, so they are the
-        same storage after every step.  The other paths' sorts return new
+        """The step: the push of every species with its sort, the parked
+        lanes' boundary handling, accumulator unload, advance_b / advance_e
+        / advance_b (with the user current and field injection hooks), then
+        the cleaners on their cadence.  The step updates the state's field
+        tensors in place (rhob keeps the absorbed charge across steps) and
+        returns the new SimState.  The residency step updates the species
+        tensors in place too, on both devices: the merge writes into them
+        and a rebucket copies its sort into them, so they are the same
+        storage after every step.  The other paths' sorts return new
         species tensors.
 
-        2-D (nz == 1): a bucket sort every pallas_sort_interval steps and
-        the 2-D push kernel (fused_push_multi).  3-D: with residency, the
-        brick sort runs once (and again on a rebucket) and each step pushes
-        with the outbox epilogue, plans the exchange and merges; without,
-        every step brick-sorts and pushes (fused_push3d_multi)."""
+        "push2d" (nz == 1): a bucket sort every pallas_sort_interval steps
+        and the 2-D push kernel (fused_push_multi).  "push3d": with
+        residency, the brick sort runs once (and again on a rebucket) and
+        each step pushes with the outbox epilogue, handles the parked
+        lanes, plans the exchange and merges; without, every step
+        brick-sorts and pushes (fused_push3d_multi).  "general" (3-D grids
+        the bricks do not tile): sort_p on each species' sort_interval,
+        fused_push3d_multi without home maps, boundary_p with its
+        num_comm_round handler runs.  The returned function's ``path`` names
+        the path."""
         self._check_device()
         g = self.grid
-        fused3, sortK = self._fused_mode()
-        res_on, res_slack = self._residency_mode() if fused3 else (False, 0)
+        path, sortK = self._path()
+        res_on, res_slack = self._residency_mode()
         m = self._material_coeffs()
         damp = self.damp
         sp_params = [st.params for st in self.species]
@@ -473,6 +594,14 @@ class Simulation:
         ce = self.clean_div_e_interval
         cb = self.clean_div_b_interval
         sy = self.sync_shared_interval
+        u_field = self.user_field_injection
+        u_current = self.user_current_injection
+        handlers = dict(self.pbc_handlers)
+        vbc = self._local_vbc()
+        walled = P.has_walls(g, vbc)
+        # lanes can be parked at a custom face: boundary_p runs
+        parks = bool(handlers) or any(bc <= FIRST_CUSTOM_PBC
+                                      for bc in g.particle_bc)
 
         def clean_e(f, species):
             F.clear_rhof(f)
@@ -489,12 +618,46 @@ class Simulation:
                 F.compute_div_b_err(f, g)
                 F.clean_div_b(f, g)
 
-        def push2(species, step, fcoef, acc, diag):
+        def handle_parked(species, walls, acc, diag, rounds):
+            """The parked lanes' handlers (boundary_p), in place."""
+            if not parks:
+                return species, acc
+            species, acc, _, _, hd = B.boundary_p(
+                species, sp_params, walls.pends, walls.disps, acc,
+                walls.rhob, g, num_comm_round=rounds, max_streak=max_streak,
+                custom_handlers=handlers, generator=self._generator,
+                diag=diag)
+            diag.update(hd)
+            return species, acc
+
+        def push_general(species, step, fcoef, acc, diag, rhob):
+            # --- sort (performance + collision partition) ---
+            for k, spp in enumerate(sp_params):
+                if spp.sort_interval > 0 and step % spp.sort_interval == 0:
+                    species[k] = P.sort_p(species[k])
+            # the 3-D kernel without home maps (its plain version, advance_p
+            # per species, on the CPU)
+            walls = P.Walls(rhob, vbc) if walled else None
+            species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
+                species, fcoef, acc, g, qms, max_streak=max_streak,
+                walls=walls)
+            # --- boundary interaction (boundary_p x num_comm_round,
+            #     advance.cc:73-101) ---
+            species, acc = handle_parked(species, walls, acc, diag,
+                                         self.num_comm_round)
+            return species, acc, unfinished
+
+        def push2(species, step, fcoef, acc, diag, rhob):
             if step % sortK == 0:
                 species = [FP.bucket_sort_p(sp, g, extent=sort_extents[k])
                            for k, sp in enumerate(species)]
+            walls = P.Walls(rhob, vbc) if walled else None
             species, acc, unfinished = FP.fused_push_multi(
-                species, fcoef, acc, g, qms, max_streak=max_streak)
+                species, fcoef, acc, g, qms, max_streak=max_streak,
+                walls=walls)
+            # the parked lanes' handlers run once, as after the JAX
+            # package's outlier replay (pallas_push.py:1010-1017)
+            species, acc = handle_parked(species, walls, acc, diag, 0)
             return species, acc, unfinished
 
         def sort_res(species):
@@ -503,8 +666,9 @@ class Simulation:
                    for k, sp in enumerate(species)]
             return [o[0] for o in out], [o[1] for o in out]
 
-        def push3(species, step, fcoef, acc, diag):
+        def push3(species, step, fcoef, acc, diag, rhob):
             nsp = len(species)
+            walls = P.Walls(rhob, vbc) if walled else None
             if not res_on:
                 for k in range(nsp):
                     species[k], diag[f"_chart_home{k}"] = \
@@ -513,7 +677,8 @@ class Simulation:
                 homes = [diag[f"_chart_home{k}"] for k in range(nsp)]
                 species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                     species, fcoef, acc, g, qms, homes=homes,
-                    max_streak=max_streak)
+                    max_streak=max_streak, walls=walls)
+                species, acc = handle_parked(species, walls, acc, diag, 0)
                 return species, acc, unfinished
             # residency (vpic_tpu/deck.py:1195-1233, 1364-1419): the whole
             # path runs on the [0, E) extent slices
@@ -527,7 +692,11 @@ class Simulation:
             species, acc, emits, obx, ores, unfinished = \
                 FP3.fused_push3d_multi(species, fcoef, acc, g, qms,
                                        homes=homes, max_streak=max_streak,
-                                       residency=True)
+                                       residency=True, walls=walls)
+            # the parked lanes before the exchange, as the JAX package's
+            # replay (deck.py:1340-1380); a lane a handler moves out of its
+            # home brick is misplaced, and the step rebuckets
+            species, acc = handle_parked(species, walls, acc, diag, 0)
             free_j = RES.block_counts(species, emits)
             homes_cat = torch.cat(homes) if nsp > 1 else homes[0]
             compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
@@ -555,7 +724,7 @@ class Simulation:
             diag["_res_valid"] = True
             return species, acc, unfinished
 
-        push = push3 if fused3 else push2
+        push = dict(push2d=push2, push3d=push3, general=push_general)[path]
 
         def advance(state: SimState) -> SimState:
             f = state.fields
@@ -567,14 +736,18 @@ class Simulation:
             diag = dict(state.diag)
             if species:
                 species, acc, unfinished = push(species, step, fcoef, acc,
-                                                diag)
+                                                diag, f.rhob.view(-1))
                 diag["unfinished"] = diag["unfinished"] + unfinished
             F.clear_jf(f)
             I.unload_accumulator(f, acc, g)
             F.synchronize_jf(f, g)
+            if u_current is not None:
+                f = u_current(f, step)
 
             F.advance_b(f, g, 0.5)
             F.advance_e(f, g, m, damp)
+            if u_field is not None:
+                f = u_field(f, step)
             F.advance_b(f, g, 0.5)
 
             if ce > 0 and step % ce == 0:
@@ -586,6 +759,7 @@ class Simulation:
             return SimState(fields=f, species=tuple(species), step=step + 1,
                             diag=diag)
 
+        advance.path = path
         return advance
 
     def make_step(self) -> Callable[[SimState], SimState]:

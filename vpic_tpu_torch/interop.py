@@ -3,7 +3,10 @@
 ``state_from_numpy`` takes a ``vpic_tpu`` ``SimState`` whose leaves are
 numpy arrays (what ``jax.device_get(state)`` returns) and builds the port's
 ``SimState`` on a device; ``state_to_numpy`` goes the other way, to plain
-dicts of numpy arrays.  Neither imports the JAX package: the input is read
+dicts of numpy arrays.  Every ``diag`` entry moves both ways, the boundary
+handlers' counters and link buffers included.  ``vbc_from_numpy`` takes a
+per-voxel-face particle-BC code table (the JAX package's
+``Simulation._vbc``).  Neither imports the JAX package: the input is read
 by attribute (or key) names, which both packages share.  Values move
 bit-exactly; ``i`` stays int32 and ``live`` bool.
 """
@@ -72,3 +75,15 @@ def state_to_numpy(state: SimState) -> dict:
                  for sp in state.species],
         step=int(state.step),
         diag={k: host(v) for k, v in state.diag.items()})
+
+
+def vbc_from_numpy(vbc, device="cuda") -> torch.Tensor:
+    """A (NZ, NY, NX, 6), (nv, 6) or flat (nv * 6,) int32 per-voxel-face
+    particle-BC code table -> the port's (nv, 6) int32 table on
+    ``device``."""
+    arr = np.array(vbc, order="C")
+    if arr.dtype != np.int32:
+        raise TypeError(f"expected int32, got {arr.dtype}")
+    if arr.size % 6:
+        raise ValueError(f"{arr.size} codes are not 6 per voxel")
+    return torch.from_numpy(arr.reshape(-1, 6)).to(device)

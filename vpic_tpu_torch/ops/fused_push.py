@@ -13,8 +13,14 @@ falls back from one to the other.
 
 The kernel works in canonical voxels and wraps periodic faces itself, so
 none of the TPU kernel's voxel windows, ghost residents or outlier replay
-exist here.  Faces it does not implement (absorbing, custom, remote) make
-``supports`` raise: such decks wait for the boundary layer.
+exist here.  On a deck with wall faces (absorbing or custom domain faces,
+or a per-voxel-face table; ``ops/push.has_walls``) the caller passes a
+``push.Walls``: the kernel's WALLS instance then kills lanes at absorbing
+faces (their charge into ``walls.rhob``), parks lanes at custom faces and
+writes every lane's pend code and remaining displacement for
+``boundary.boundary_p``, as the general path's advance_p does.  Without
+wall faces the launch runs the instance that has none of that code.
+Remote faces and decomposed grids make ``supports`` raise.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ import torch
 from ..grid import P_PERIODIC, Grid
 from ..state import SpeciesState
 from . import _build
-from .push import UNFINISHED, advance_p, check_particle_bcs, gather_sp_rows
+from .push import (UNFINISHED, Walls, advance_p, check_particle_bcs,
+                   gather_sp_rows, has_walls)
 
 BUCKET = 128
 KERNEL = "fused_push2d"
@@ -43,7 +50,7 @@ deposits = None
 
 def supports(g: Grid) -> bool:
     """True when the push kernel can run this grid; raises otherwise
-    (2-D, one device, periodic or reflecting particle faces only)."""
+    (2-D, one device, no remote particle faces)."""
     if g.nz != 1:
         raise NotImplementedError(
             f"nz={g.nz}: the fused push covers 2-D grids (nz == 1); 3-D "
@@ -91,20 +98,56 @@ def bucket_sort_p(sp: SpeciesState, g: Grid, bucket: int = BUCKET,
     return sp.replace(**moved)
 
 
+def check_walls(g: Grid, walls, dev: torch.device):
+    """Raise unless ``walls`` is what a push on ``g`` needs: a Walls on a
+    deck with wall faces (see push.has_walls), with a flat (nv,) float32
+    rhob and an (nv, 6) int32 vbc table or None on ``dev``."""
+    if walls is None:
+        if has_walls(g):
+            raise ValueError("the grid has absorbing or custom particle "
+                             "faces: pass walls=Walls(rhob, vbc)")
+        return
+    _check(walls.rhob, "walls.rhob", torch.float32, (g.nv,), dev)
+    if walls.vbc is not None:
+        _check(walls.vbc, "walls.vbc", torch.int32, (g.nv, 6), dev)
+
+
+def push_species_ref(species: Sequence[SpeciesState], fcoef, acc, g: Grid,
+                     qms, max_streak: int = 4, walls=None):
+    """advance_p per species into the shared accumulator (and walls.rhob),
+    filling walls.pends / walls.disps as the kernels do for the lanes live
+    when the push began (and pend DONE, displacement 0 on the others, which
+    the kernels leave unwritten).  Returns (the advance_p results,
+    unfinished)."""
+    rhob = vbc = None
+    if walls is not None:
+        rhob, vbc = walls.rhob, walls.vbc
+        walls.pends, walls.disps = [], []
+    results = []
+    unfinished = torch.zeros((), dtype=torch.int32, device=acc.device)
+    for sp, (q, m) in zip(species, qms):
+        res = advance_p(sp, fcoef, g, q, m, acc, rhob, max_streak=max_streak,
+                        vbc=vbc)
+        results.append(res)
+        unfinished = unfinished + (res.pend_face == UNFINISHED).sum(
+            dtype=torch.int32)
+        if walls is not None:
+            walls.pends.append(res.pend_face)
+            walls.disps.append(torch.where(sp.live, torch.stack(res.pend_disp),
+                                           0.0))
+    return results, unfinished
+
+
 def fused_push_multi_ref(species: Sequence[SpeciesState], fcoef, acc,
-                         g: Grid, qms, max_streak: int = 4):
+                         g: Grid, qms, max_streak: int = 4, walls=None):
     """Plain PyTorch version of fused_push_multi: advance_p per species into
     the shared accumulator.  Returns (species, acc, unfinished) like the
     kernel path, with new species tensors."""
     supports(g)
-    out = []
-    unfinished = torch.zeros((), dtype=torch.int32, device=acc.device)
-    for sp, (q, m) in zip(species, qms):
-        res = advance_p(sp, fcoef, g, q, m, acc, max_streak=max_streak)
-        out.append(res.species)
-        unfinished = unfinished + (res.pend_face == UNFINISHED).sum(
-            dtype=torch.int32)
-    return out, acc, unfinished
+    check_walls(g, walls, acc.device)
+    results, unfinished = push_species_ref(species, fcoef, acc, g, qms,
+                                           max_streak, walls)
+    return [r.species for r in results], acc, unfinished
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -144,21 +187,23 @@ def c_array(ctype, values):
 
 
 def c_species_table(species: Sequence[SpeciesState], qms, g: Grid,
-                    homes=None, emits=None):
-    """The entry points' per-species host arrays for one launch: the 11
-    pointers per species (dx dy dz vox ux uy uz w live home emit; home and
-    emit null when not given), the lane counts, qdt_2mc and qsp."""
+                    homes=None, emits=None, pends=None, disps=None):
+    """The entry points' per-species host arrays for one launch: the 13
+    pointers per species (dx dy dz vox ux uy uz w live home emit pend
+    pdisp; each of the last four null when not given), the lane counts,
+    qdt_2mc, qsp and qsp * r8V."""
+    opt = lambda ts, k: None if ts is None else ts[k].data_ptr()
     ptrs = []
     for k, sp in enumerate(species):
         ptrs += [t.data_ptr() for t in (sp.dx, sp.dy, sp.dz, sp.i, sp.ux,
                                         sp.uy, sp.uz, sp.w, sp.live)]
-        ptrs += [None if homes is None else homes[k].data_ptr(),
-                 None if emits is None else emits[k].data_ptr()]
+        ptrs += [opt(homes, k), opt(emits, k), opt(pends, k), opt(disps, k)]
     return (c_array(ctypes.c_void_p, ptrs),
             c_array(ctypes.c_int, [sp.capacity for sp in species]),
             c_array(ctypes.c_float,
                     [(q * g.dt) / (2.0 * m * g.cvac) for q, m in qms]),
-            c_array(ctypes.c_float, [q for q, _ in qms]))
+            c_array(ctypes.c_float, [q for q, _ in qms]),
+            c_array(ctypes.c_float, [q * g.r8V for q, _ in qms]))
 
 
 def push_constants(g: Grid):
@@ -168,6 +213,38 @@ def push_constants(g: Grid):
                 for ax in range(3)]
     return (g.cvac * g.dt * g.rdx, g.cvac * g.dt * g.rdy,
             g.cvac * g.dt * g.rdz, g.nx, g.ny, g.nz, *periodic)
+
+
+def wall_constants(g: Grid, walls):
+    """The entry points' wall arguments: walls (0/1), the six faces'
+    particle BC codes, the vbc table and rhob (null without walls)."""
+    if walls is None:
+        return (0, c_array(ctypes.c_int, [0] * 6), None, None)
+    return (1, c_array(ctypes.c_int, list(g.particle_bc)),
+            None if walls.vbc is None else walls.vbc.data_ptr(),
+            walls.rhob.data_ptr())
+
+
+def recount(species: Sequence[SpeciesState], walls) -> List[SpeciesState]:
+    """The species after a kernel push: with walls, lanes may have died at
+    an absorbing face, so ``np`` counts the live lanes anew (a device
+    reduction, no host read); without, the same objects."""
+    if walls is None:
+        return list(species)
+    return [sp.replace(np=sp.live.sum(dtype=torch.int32)) for sp in species]
+
+
+def wall_outputs(species: Sequence[SpeciesState], walls):
+    """Fresh walls.pends / walls.disps for the kernel to write (the lanes
+    live when the push begins; the other slots stay unwritten), or (None,
+    None) without walls."""
+    if walls is None:
+        return None, None
+    walls.pends = [torch.empty((sp.capacity,), dtype=torch.int32,
+                               device=sp.dx.device) for sp in species]
+    walls.disps = [torch.empty((3, sp.capacity), dtype=torch.float32,
+                               device=sp.dx.device) for sp in species]
+    return walls.pends, walls.disps
 
 
 def deposit_counter(count, dev: torch.device) -> torch.Tensor:
@@ -180,9 +257,11 @@ def deposit_counter(count, dev: torch.device) -> torch.Tensor:
 TABLE_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
 GRID_ARGTYPES = [ctypes.c_float] * 3 + [ctypes.c_int] * 7
-_ARGTYPES = (TABLE_ARGTYPES + [ctypes.POINTER(ctypes.c_float)] * 2
+WALL_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)] \
+    + [ctypes.c_void_p] * 2
+_ARGTYPES = (TABLE_ARGTYPES + [ctypes.POINTER(ctypes.c_float)] * 3
              + [ctypes.c_int] + [ctypes.c_void_p] * 4 + GRID_ARGTYPES
-             + [ctypes.c_void_p])
+             + WALL_ARGTYPES + [ctypes.c_void_p])
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -191,7 +270,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.fused_push2d_blocks_per_sm.argtypes = []
+        lib.fused_push2d_blocks_per_sm.argtypes = [ctypes.c_int]
         lib.fused_push2d_blocks_per_sm.restype = ctypes.c_int
         lib.fused_push2d_error_string.argtypes = [ctypes.c_int]
         lib.fused_push2d_error_string.restype = ctypes.c_char_p
@@ -201,29 +280,34 @@ def _kernel_lib() -> ctypes.CDLL:
 def fused_push_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
                      acc: torch.Tensor, g: Grid,
                      qms: Sequence[Tuple[float, float]],
-                     max_streak: int = 4
+                     max_streak: int = 4, walls: Walls = None
                      ) -> Tuple[List[SpeciesState], torch.Tensor,
                                 torch.Tensor]:
     """Push every species one step and deposit their currents.
 
     ``fcoef`` is the (nv, 18) load_interpolator table, ``acc`` the (nv, 12)
     float32 accumulator (added to in place), ``qms`` (charge, mass) per
-    species.  Returns (species, acc, unfinished), where ``unfinished`` is a
-    0-d int32 device tensor counting lanes still walking after
-    ``max_streak`` rounds.
+    species, ``walls`` the push.Walls a deck with wall faces needs (its
+    rhob is added to in place, and its pends / disps are set for the lanes
+    live when the push began).  Returns
+    (species, acc, unfinished), where ``unfinished`` is a 0-d int32 device
+    tensor counting lanes still walking after ``max_streak`` rounds.
 
     CUDA tensors: one kernel launch for every species (MAX_SPECIES to a
     launch); the species tensors are updated IN PLACE and the same objects
-    are returned, and the module's ``deposits`` counts the launch's deposit
-    rounds on the card.  CPU tensors: the plain version, which returns new
-    tensors.  Any other device raises."""
+    are returned (with walls, with ``np`` recounted), and the module's
+    ``deposits`` counts the launch's deposit rounds on the card.  CPU
+    tensors: the plain version, which returns new tensors.  Any other
+    device raises."""
     global launches, deposits
     supports(g)
     dev = fcoef.device
     if dev.type == "cpu":
-        return fused_push_multi_ref(species, fcoef, acc, g, qms, max_streak)
+        return fused_push_multi_ref(species, fcoef, acc, g, qms, max_streak,
+                                    walls)
     if dev.type != "cuda":
         raise ValueError(f"fused_push_multi: unsupported device {dev}")
+    check_walls(g, walls, dev)
     _check(fcoef, "fcoef", torch.float32, (g.nv, 18), dev)
     _check(acc, "acc", torch.float32, (g.nv, 12), dev)
     for k, sp in enumerate(species):
@@ -240,17 +324,21 @@ def fused_push_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
     unfinished = torch.zeros((1,), dtype=torch.int32, device=dev)
     deposits = deposit_counter(deposits, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    pends, disps = wall_outputs(species, walls)
     for grp in species_groups(species):
         sps = [species[k] for k in grp]
-        ptrs, n, qdt_2mc, qsp = c_species_table(sps, [qms[k] for k in grp],
-                                                g)
+        pick = lambda ts: None if ts is None else [ts[k] for k in grp]
+        ptrs, n, qdt_2mc, qsp, qr8v = c_species_table(
+            sps, [qms[k] for k in grp], g, pends=pick(pends),
+            disps=pick(disps))
         blk0, grid = launch_plan([-(-sp.capacity // LANES) for sp in sps])
         rc = lib.fused_push2d(
             len(sps), ptrs, n, c_array(ctypes.c_int, blk0), qdt_2mc, qsp,
-            grid, fcoef.data_ptr(), acc.data_ptr(), unfinished.data_ptr(),
-            deposits.data_ptr(), *push_constants(g), max_streak, stream)
+            qr8v, grid, fcoef.data_ptr(), acc.data_ptr(),
+            unfinished.data_ptr(), deposits.data_ptr(), *push_constants(g),
+            max_streak, *wall_constants(g, walls), stream)
         if rc != 0:
             msg = lib.fused_push2d_error_string(rc).decode()
             raise RuntimeError(f"fused_push2d launch failed: {msg} ({rc})")
         launches += 1
-    return list(species), acc, unfinished[0]
+    return recount(species, walls), acc, unfinished[0]

@@ -29,9 +29,14 @@ counterpart here, because the port keeps canonical voxels, the (nv, 18)
 * ``_prefix_excl`` (:346): a block scan of warp ballots takes its place;
   the hi/lo one-hot dots and ``dep_terms``;
 * the chart-exit pre-flag and the quantile home fallback: the kernel walks
-  canonical voxels and reaches any cell, so on a deck with periodic and
-  reflecting faces no lane is ever flagged.  Other faces raise (check3d)
-  until the boundary layer brings the outlier replay.
+  canonical voxels and reaches any cell, so no lane is ever flagged;
+* the wall pre-flag and the region mark (:550-590) and the outlier replay
+  they feed: as in 2-D (``ops/fused_push.py``), the kernel's WALLS
+  instance applies the absorbing, custom and per-voxel-face rules where the
+  walk meets them, given a ``push.Walls``.  A lane that died or was parked
+  at a wall is not a brick-leaver: it never reaches the outbox, and
+  ``boundary_p`` handles it before the exchange, as the JAX package's
+  replay runs before it.
 """
 
 from __future__ import annotations
@@ -44,11 +49,13 @@ import torch
 from ..grid import Grid
 from ..state import SpeciesState
 from . import _build
-from .fused_push import (GRID_ARGTYPES, TABLE_ARGTYPES, _check, _round_up,
-                         c_array, c_species_table, deposit_counter,
-                         launch_plan, packed_src_sort, push_constants,
-                         species_groups)
-from .push import UNFINISHED, advance_p, check_particle_bcs, gather_sp_rows
+from .fused_push import (GRID_ARGTYPES, TABLE_ARGTYPES, WALL_ARGTYPES,
+                         _check, _round_up, c_array, c_species_table,
+                         check_walls, deposit_counter, launch_plan,
+                         packed_src_sort, push_constants, push_species_ref,
+                         recount, species_groups, wall_constants,
+                         wall_outputs)
+from .push import CUSTOM_BASE, Walls, check_particle_bcs, gather_sp_rows
 
 B3 = 8                      # 3-D brick side (cells)
 CH2_B = (16, 8, 1)          # 2-D brick dims (x, y, z cells)
@@ -110,15 +117,23 @@ def supports3d(g: Grid, max_capacity: int = 0) -> bool:
     return 1024 <= g.nv < (1 << 24)
 
 
-def check3d(g: Grid, max_capacity: int = 0) -> None:
-    """Raise for 3-D decks the port's 3-D path does not run yet."""
+def check3d(g: Grid, max_capacity: int = 0, bricks: bool = True) -> None:
+    """Raise for 3-D decks the 3-D kernel cannot push: nz > 1, one device,
+    no remote faces, int32 lane and voxel indices, and with ``bricks`` (a
+    home map or the residency outbox) the brick rule of supports3d.  Without
+    home maps the kernel walks any grid, every deposit on the global path:
+    the deck's general path pushes the grids the bricks do not tile so."""
     if g.nz <= 1:
         raise ValueError(f"nz={g.nz}: the 3-D path needs nz > 1")
-    if not supports3d(g, max_capacity):
+    if bricks and not supports3d(g, max_capacity):
         raise NotImplementedError(
-            f"grid {g.nx}x{g.ny}x{g.nz}: the 3-D path needs every axis a "
+            f"grid {g.nx}x{g.ny}x{g.nz}: the brick path needs every axis a "
             "multiple of 8 cells and at least 16, and 1024 <= nv < 2^24; "
-            "other 3-D grids wait for the port of the general push path")
+            "other 3-D grids take the general push path, without home maps")
+    if max_capacity >= (1 << 30) or g.nv >= (1 << 31):
+        raise NotImplementedError(
+            f"capacity {max_capacity}, nv {g.nv}: the 3-D kernel indexes "
+            "lanes and voxels with int32")
     check_particle_bcs(g)
 
 
@@ -223,11 +238,12 @@ def brick_sort_p(sp: SpeciesState, g: Grid, quantum: int = BLOCK,
 
 
 def _residency_epilogue(out: Sequence[SpeciesState], homes, g: Grid,
-                        out_cap: int):
+                        out_cap: int, pends=None):
     """The kernel's residency epilogue in torch: a pushed live lane whose
-    voxel left its block's home brick is a leaver; the first ``out_cap`` of
-    each block, in lane order, go to the block's outbox columns and get
-    their emit mark.  Returns (emits, outbox, ores)."""
+    voxel left its block's home brick is a leaver, unless it is parked at a
+    custom face (``pends``); the first ``out_cap`` of each block, in lane
+    order, go to the block's outbox columns and get their emit mark.
+    Returns (emits, outbox, ores)."""
     dev = out[0].dx.device
     nblocks = [(sp.capacity + BLOCK - 1) // BLOCK for sp in out]
     M = sum(nblocks) * out_cap
@@ -237,11 +253,13 @@ def _residency_epilogue(out: Sequence[SpeciesState], homes, g: Grid,
     emits = []
     ores = torch.zeros((), dtype=torch.int32, device=dev)
     blk0 = 0
-    for sp, home, nb in zip(out, homes, nblocks):
+    for k, (sp, home, nb) in enumerate(zip(out, homes, nblocks)):
         N = sp.capacity
         pad = nb * BLOCK - N
         hl = home.to(torch.int64).repeat_interleave(BLOCK)[:N]
         leave = sp.live & (brick_of(sp.i, g).to(torch.int64) != hl)
+        if pends is not None:
+            leave = leave & (pends[k] < CUSTOM_BASE)
         lv = torch.nn.functional.pad(leave, (0, pad)).view(nb, BLOCK)
         li = lv.to(torch.int32)
         pos = torch.cumsum(li, 1, dtype=torch.int32) - li
@@ -266,31 +284,31 @@ def _residency_epilogue(out: Sequence[SpeciesState], homes, g: Grid,
 
 def fused_push3d_multi_ref(species: Sequence[SpeciesState], fcoef, acc,
                            g: Grid, qms, homes=None, max_streak: int = 4,
-                           residency: bool = False, out_cap: int = OUT_CAP):
+                           residency: bool = False, out_cap: int = OUT_CAP,
+                           walls: Walls = None):
     """Plain PyTorch version of fused_push3d_multi: advance_p per species
     into the shared accumulator, then (``residency``) the outbox epilogue.
     Returns (species, acc, emits, outbox, ores, unfinished) like the kernel
     path, with new species tensors; emits, outbox and ores are None without
     residency."""
-    check3d(g)
+    check3d(g, bricks=homes is not None or residency)
+    check_walls(g, walls, acc.device)
+    results, unfinished = push_species_ref(species, fcoef, acc, g, qms,
+                                           max_streak, walls)
     out = []
-    unfinished = torch.zeros((), dtype=torch.int32, device=acc.device)
-    for sp, (q, m) in zip(species, qms):
-        res = advance_p(sp, fcoef, g, q, m, acc, max_streak=max_streak)
+    for sp, res in zip(species, results):
         # dead lanes pass through untouched, as in the kernel
         # (advance_p moves every lane's momentum and zeroes dead weights)
         new = res.species
         out.append(new.replace(
             **{n: torch.where(sp.live, getattr(new, n), getattr(sp, n))
-               for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz")},
-            w=sp.w))
-        unfinished = unfinished + (res.pend_face == UNFINISHED).sum(
-            dtype=torch.int32)
+               for n in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w")}))
     if not residency:
         return out, acc, None, None, None, unfinished
     if homes is None:
         raise ValueError("residency needs the home maps")
-    emits, obx, ores = _residency_epilogue(out, homes, g, out_cap)
+    emits, obx, ores = _residency_epilogue(
+        out, homes, g, out_cap, None if walls is None else walls.pends)
     return out, acc, emits, obx, ores, unfinished
 
 
@@ -305,10 +323,10 @@ def run_length(nblocks: int, slots: int) -> int:
 
 
 _ARGTYPES = (TABLE_ARGTYPES + [ctypes.POINTER(ctypes.c_int)]
-             + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_int] * 2
+             + [ctypes.POINTER(ctypes.c_float)] * 3 + [ctypes.c_int] * 2
              + [ctypes.c_void_p] * 4 + GRID_ARGTYPES + [ctypes.c_int]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
-             + [ctypes.c_int] + [ctypes.c_void_p])
+             + [ctypes.c_int] + WALL_ARGTYPES + [ctypes.c_void_p])
 _slots = {}                 # device index -> resident CUDA blocks
 
 
@@ -318,25 +336,26 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.fused_push3d_blocks_per_sm.argtypes = []
+        lib.fused_push3d_blocks_per_sm.argtypes = [ctypes.c_int]
         lib.fused_push3d_blocks_per_sm.restype = ctypes.c_int
         lib.fused_push3d_error_string.argtypes = [ctypes.c_int]
         lib.fused_push3d_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def resident_blocks(dev: torch.device) -> int:
-    """CUDA blocks of the kernel the card holds at once."""
+def resident_blocks(dev: torch.device, walls: bool = False) -> int:
+    """CUDA blocks of the kernel (its WALLS instance if ``walls``) the card
+    holds at once."""
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _slots:
+    if (idx, walls) not in _slots:
         with torch.cuda.device(idx):
-            per_sm = _kernel_lib().fused_push3d_blocks_per_sm()
+            per_sm = _kernel_lib().fused_push3d_blocks_per_sm(int(walls))
         if per_sm < 1:
             raise RuntimeError("fused_push3d: no block of the kernel fits "
                                "on an SM")
-        _slots[idx] = per_sm * torch.cuda.get_device_properties(
+        _slots[idx, walls] = per_sm * torch.cuda.get_device_properties(
             idx).multi_processor_count
-    return _slots[idx]
+    return _slots[idx, walls]
 
 
 def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
@@ -344,14 +363,18 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
                        qms: Sequence[Tuple[float, float]],
                        homes: Optional[Sequence[torch.Tensor]] = None,
                        max_streak: int = 4, residency: bool = False,
-                       out_cap: int = OUT_CAP):
+                       out_cap: int = OUT_CAP, walls: Walls = None):
     """Push every species of a 3-D deck one step and deposit their currents.
 
     ``fcoef`` is the (nv, 18) load_interpolator table, ``acc`` the (nv, 12)
     float32 accumulator (added to in place), ``qms`` (charge, mass) per
     species, ``homes`` the per-species (ceil(capacity/1024),) int32 block ->
     home brick maps of the last brick sort (needed with ``residency``;
-    without them every deposit takes the global path).
+    without them every deposit takes the global path, and the grid need
+    not be one the bricks tile), ``walls`` the
+    push.Walls a deck with wall faces needs (its rhob is added to in place,
+    and its pends / disps are set for the lanes live when the push
+    began).
 
     Returns (species, acc, emits, outbox, ores, unfinished): per-species
     bool emit marks (a lane copied to its block's outbox), the Outbox
@@ -362,17 +385,20 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
 
     CUDA tensors: one kernel launch for every species (MAX_SPECIES to a
     launch); the species tensors are updated IN PLACE and the same objects
-    are returned, and the module's ``deposits`` counts the launch's deposit
-    rounds on the card.  CPU tensors: the plain version, which returns new
-    tensors.  Any other device raises."""
+    are returned (with walls, with ``np`` recounted), and the module's
+    ``deposits`` counts the launch's deposit rounds on the card.  CPU
+    tensors: the plain version, which returns new tensors.  Any other
+    device raises."""
     global launches, deposits
-    check3d(g, max((sp.capacity for sp in species), default=0))
+    check3d(g, max((sp.capacity for sp in species), default=0),
+            bricks=homes is not None or residency)
     dev = fcoef.device
     if dev.type == "cpu":
         return fused_push3d_multi_ref(species, fcoef, acc, g, qms, homes,
-                                      max_streak, residency, out_cap)
+                                      max_streak, residency, out_cap, walls)
     if dev.type != "cuda":
         raise ValueError(f"fused_push3d_multi: unsupported device {dev}")
+    check_walls(g, walls, dev)
     if len(species) != len(qms):
         raise ValueError("one (charge, mass) pair per species")
     if not 0 < out_cap <= BLOCK:
@@ -408,24 +434,26 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
     col0 = [sum(nblocks[:k]) * out_cap for k in range(len(species))]
     res = ([obx.f.data_ptr(), obx.vox.data_ptr(), obx.valid.data_ptr(), M,
             ores.data_ptr()] if residency else [None, None, None, M, None])
-    slots = resident_blocks(dev)
+    slots = resident_blocks(dev, walls is not None)
+    pends, disps = wall_outputs(species, walls)
     for grp in species_groups(species):
         sps = [species[k] for k in grp]
-        ptrs, n, qdt_2mc, qsp = c_species_table(
-            sps, [qms[k] for k in grp], g,
-            homes=None if homes is None else [homes[k] for k in grp],
-            emits=None if emits is None else [emits[k] for k in grp])
+        pick = lambda ts: None if ts is None else [ts[k] for k in grp]
+        ptrs, n, qdt_2mc, qsp, qr8v = c_species_table(
+            sps, [qms[k] for k in grp], g, homes=pick(homes),
+            emits=pick(emits), pends=pick(pends), disps=pick(disps))
         run = run_length(sum(nblocks[k] for k in grp), slots)
         blk0, grid = launch_plan([nblocks[k] for k in grp], run)
         rc = lib.fused_push3d(
             len(sps), ptrs, n, c_array(ctypes.c_int, blk0),
             c_array(ctypes.c_int, [col0[k] for k in grp]), qdt_2mc, qsp,
-            grid, run, fcoef.data_ptr(), acc.data_ptr(),
+            qr8v, grid, run, fcoef.data_ptr(), acc.data_ptr(),
             unfinished.data_ptr(), deposits.data_ptr(), *push_constants(g),
-            max_streak, int(residency), *res, out_cap, stream)
+            max_streak, int(residency), *res, out_cap,
+            *wall_constants(g, walls), stream)
         if rc != 0:
             msg = lib.fused_push3d_error_string(rc).decode()
             raise RuntimeError(f"fused_push3d launch failed: {msg} ({rc})")
         launches += 1
-    return (list(species), acc, emits, obx,
+    return (recount(species, walls), acc, emits, obx,
             ores[0] if residency else None, unfinished[0])

@@ -6,58 +6,91 @@ in-bounds particle finishes on the first sub-streak with the inline
 ACCUMULATE_J deposits, crossers take up to ``max_streak`` masked
 sub-streaks.  Deposits go through ``index_add_`` on a long voxel index into
 one (nv, 12) quarter-face accumulator.  This module is also the plain
-version of the hand-written push kernel (``ops/fused_push.py``).
+version of the hand-written push kernels (``ops/fused_push.py``,
+``ops/fused_push3d.py``).
 
-Particle faces: periodic and reflecting.  Absorbing, custom, remote and
-per-voxel (``vbc``) faces need the boundary layer, which is not ported yet;
-they raise NotImplementedError.
+Particle faces, one device: periodic and reflecting faces are walked
+through; at an absorbing face the lane dies and its charge goes to rhob;
+at a custom face (ids <= FIRST_CUSTOM_PBC) the lane is parked for
+``boundary.boundary_p`` with pend = CUSTOM_BASE + face and its remaining
+displacement.  A per-voxel-face code table ``vbc`` (set_region_particle_bc)
+overrides the domain rule at the faces it marks.  Remote faces and
+decomposed grids raise NotImplementedError.
 
 All arithmetic is float32 in the JAX package's operation order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..grid import P_PERIODIC, REFLECT_PARTICLES, Grid
+from ..grid import (ABSORB_PARTICLES, P_PERIODIC, P_REMOTE,
+                    REFLECT_PARTICLES, Grid)
 from ..state import SpeciesState
 
 ONE_THIRD = 1.0 / 3.0
 TWO_FIFTEENTHS = 2.0 / 15.0
 BIG = 3.4e38
 
-# pend_face codes: -1 = finished locally, 6 = ran out of streak iterations.
+# pend_face codes: -1 = finished locally, 0..5 = left through that face
+# toward another domain (decomposed runs only), 6 = ran out of streak
+# iterations, >= 8 = parked at a custom particle BC: CUSTOM_BASE + face for
+# a domain face, CUSTOM_BASE + 6 + 6 h + face for region handler h.
 DONE = -1
 UNFINISHED = 6
+CUSTOM_BASE = 8
 
 
 class PushResult(NamedTuple):
     species: SpeciesState
     acc: torch.Tensor         # (nv, 12) quarter-face current accumulator
+    rhob_flat: torch.Tensor   # (nv,) flat rhob including absorb deposits
     pend_face: torch.Tensor   # (N,) int32, see codes above
+    pend_disp: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    n_pend: torch.Tensor      # 0-d int32: lanes parked at a remote face
 
 
 def check_particle_bcs(g: Grid):
-    """Raise for faces the port's walk does not implement yet."""
+    """Raise for what the one-device walk cannot do: decomposed grids, join
+    tables and remote faces (particle migration)."""
     if g.sharded or g.face_partners is not None:
         raise NotImplementedError(
             "vpic_tpu_torch runs one device: decomposed grids and join "
             "tables are not supported yet")
     for face, bc in enumerate(g.particle_bc):
-        if bc not in (P_PERIODIC, REFLECT_PARTICLES):
+        if bc == P_REMOTE:
             raise NotImplementedError(
-                f"particle bc {bc} on face {face}: only periodic and "
-                "reflecting faces are ported (absorbing, custom and remote "
-                "faces come with the boundary layer)")
-    for ax in range(3):
-        lo = g.axis_bc(ax, -1, particles=True) == P_PERIODIC
-        hi = g.axis_bc(ax, 1, particles=True) == P_PERIODIC
-        if lo != hi:
-            raise NotImplementedError(
-                f"axis {ax}: a periodic particle face needs a periodic "
-                "partner face")
+                f"particle bc {bc} (remote) on face {face}: particle "
+                "migration needs a decomposed run")
+
+
+def has_walls(g: Grid, vbc=None) -> bool:
+    """True when a push on ``g`` needs each face's own rule: an absorbing
+    or custom domain face (a lane can die or park), an axis periodic on
+    one side only, or a per-voxel-face table."""
+    periodic = [bc == P_PERIODIC for bc in g.particle_bc]
+    return vbc is not None or periodic[:3] != periodic[3:] or any(
+        bc not in (P_PERIODIC, REFLECT_PARTICLES) for bc in g.particle_bc)
+
+
+class Walls:
+    """What a push with wall faces reads and writes besides the lanes and
+    the accumulator (see has_walls).  In: ``rhob``, the (nv,) float32 flat
+    rhob that absorbed lanes deposit into in place, and ``vbc``, the
+    (nv, 6) int32 per-voxel-face code table or None.  Out, set by the
+    push: ``pends``, one (N,) int32 pend code array per species, and
+    ``disps``, one (3, N) float32 remaining displacement per species.  Only
+    the lanes live when the push began have them: the kernels leave the
+    other slots unwritten (the plain versions put DONE and 0 there), so a
+    reader masks them with the live flags."""
+
+    def __init__(self, rhob: torch.Tensor, vbc: Optional[torch.Tensor] = None):
+        self.rhob = rhob
+        self.vbc = vbc
+        self.pends: List[torch.Tensor] = []
+        self.disps: List[torch.Tensor] = []
 
 
 def decode_voxel(i: torch.Tensor, g: Grid):
@@ -143,10 +176,12 @@ def _trilinear_weights(dx, dy, dz, q):
     return torch.stack([w0, w1, w2, w3, w4, w5, w6, w7], dim=-1)
 
 
-def _node_offsets(g: Grid, device):
-    sy, sz = g.sy, g.sz
-    return torch.tensor([0, 1, sy, sy + 1, sz, sz + 1, sz + sy, sz + sy + 1],
-                        dtype=torch.int64, device=device)
+def _node_bits(device):
+    """(bx, by, bz) of the 8 trilinear nodes in VPIC's order, as int64
+    device tensors made on the device (no copy from the host, which would
+    synchronize the stream)."""
+    j = torch.arange(8, dtype=torch.int64, device=device)
+    return j & 1, (j >> 1) & 1, j >> 2
 
 
 def deposit_rhob(rhob_flat, g: Grid, i, dx, dy, dz, w, qsp, mask):
@@ -157,20 +192,19 @@ def deposit_rhob(rhob_flat, g: Grid, i, dx, dy, dz, w, qsp, mask):
     weights = _trilinear_weights(dx, dy, dz, q)
     x, y, z = decode_voxel(i, g)
     dev = weights.device
-    lo_mask = torch.tensor([[1, 1, 1, 1, 0, 0, 0, 0]], dtype=torch.float32,
-                           device=dev)
-    weights = weights * torch.where((z == 1)[:, None], 1.0 + lo_mask, 1.0)
-    weights = weights * torch.where((z == g.nz)[:, None], 2.0 - lo_mask, 1.0)
-    ylo = torch.tensor([[1, 1, 0, 0, 1, 1, 0, 0]], dtype=torch.float32,
-                       device=dev)
+    bx, by, bz = _node_bits(dev)
+    # 1 on the nodes at the low side of each axis
+    xlo, ylo, zlo = ((b == 0).to(torch.float32)[None, :]
+                     for b in (bx, by, bz))
+    weights = weights * torch.where((z == 1)[:, None], 1.0 + zlo, 1.0)
+    weights = weights * torch.where((z == g.nz)[:, None], 2.0 - zlo, 1.0)
     weights = weights * torch.where((y == 1)[:, None], 1.0 + ylo, 1.0)
     weights = weights * torch.where((y == g.ny)[:, None], 2.0 - ylo, 1.0)
-    xlo = torch.tensor([[1, 0, 1, 0, 1, 0, 1, 0]], dtype=torch.float32,
-                       device=dev)
     weights = weights * torch.where((x == 1)[:, None], 1.0 + xlo, 1.0)
     weights = weights * torch.where((x == g.nx)[:, None], 2.0 - xlo, 1.0)
 
-    nodes = (i.long()[:, None] + _node_offsets(g, dev)[None, :]).reshape(-1)
+    offsets = bx + g.sy * by + g.sz * bz
+    nodes = (i.long()[:, None] + offsets[None, :]).reshape(-1)
     weights = weights.reshape(-1)
     keep = nodes < g.nv
     rhob_flat.index_add_(0, torch.where(keep, nodes, 0),
@@ -208,18 +242,18 @@ def accumulate_rho_p(rhof_flat, sp: SpeciesState, g: Grid, qsp):
 
 
 def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
-                pend, acc, max_streak: int, vbc=None):
+                pend, acc, rhob, max_streak: int, vbc=None):
     """The move_p streak walk (move_p.cc:216-353) over all lanes at once,
-    for periodic and reflecting faces.
+    with every one-device face (push.py:361-601 of the JAX package).
 
     pos/disp/coords/u are (x, y, z) triples of (N,) tensors; deposits are
-    added to ``acc`` in place.  Returns the updated triples plus
-    (alive, pend, acc); lanes still active after ``max_streak`` rounds get
-    pend = UNFINISHED.  Per-voxel-face BC overrides (``vbc``) come with the
-    boundary layer and raise here."""
-    if vbc is not None:
-        raise NotImplementedError(
-            "per-voxel particle BCs (vbc) are not ported yet")
+    added to ``acc`` and absorbed charge to ``rhob`` in place.  ``vbc`` is
+    the (nv, 6) (or flat (nv*6,)) int32 per-voxel-face code table: 0 = the
+    domain rule, REFLECT_PARTICLES, ABSORB_PARTICLES, or a ready-made pend
+    code >= CUSTOM_BASE; it is read at the exit face of the lane's current
+    voxel before any domain logic.  Returns the updated triples plus
+    (alive, pend, acc, rhob); lanes still active after ``max_streak`` rounds
+    get pend = UNFINISHED."""
     check_particle_bcs(g)
     px, py, pz = pos
     dpx, dpy, dpz = disp
@@ -228,6 +262,7 @@ def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
     q0 = torch.where(alive, qsp * w, 0.0)
     NX, NY = g.NX, g.NY
     n_axes = (g.nx, g.ny, g.nz)
+    vbc_flat = None if vbc is None else vbc.reshape(-1)
 
     for _ in range(max_streak):
         dirx = torch.where(dpx > 0, 1.0, -1.0)
@@ -278,12 +313,40 @@ def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
         py = torch.where(crossing & (axis == 1), diry, py)
         pz = torch.where(crossing & (axis == 2), dirz, pz)
 
+        # The per-voxel-face code of the exit face comes first (the
+        # reference decodes its neighbor-table entry before any domain
+        # logic, boundary_p.cc:196-255).
+        code = None
+        if vbc_flat is not None:
+            dsel = torch.where(axis == 0, dirx,
+                               torch.where(axis == 1, diry, dirz))
+            face = (torch.where(axis < 3, axis, 0)
+                    + torch.where(dsel > 0, 3, 0))
+            idx = torch.clamp(vox.long() * 6 + face, 0,
+                              vbc_flat.shape[0] - 1)
+            code = torch.where(crossing, vbc_flat[idx], 0)
+
         pos3 = [px, py, pz]
         dp3 = [dpx, dpy, dpz]
         u3 = [ux, uy, uz]
         c3 = [xi, yi, zi]
+        vb_absorbed = None
         for ax, d in enumerate((dirx, diry, dirz)):
             m = crossing & (axis == ax)
+            if code is not None:
+                vb_r = m & (code == REFLECT_PARTICLES)
+                vb_a = m & (code == ABSORB_PARTICLES) & alive
+                vb_p = m & (code >= CUSTOM_BASE)
+                u3[ax] = torch.where(vb_r, -u3[ax], u3[ax])
+                dp3[ax] = torch.where(vb_r, -dp3[ax], dp3[ax])
+                # one rhob deposit for every region absorb of the round,
+                # after the axes (the lanes' positions stay frozen)
+                vb_absorbed = vb_a if vb_absorbed is None \
+                    else vb_absorbed | vb_a
+                alive = alive & ~vb_a
+                pend = torch.where(vb_p, code, pend)
+                active = active & ~(vb_a | vb_p)
+                m = m & ~(vb_r | vb_a | vb_p)
             n_ax = n_axes[ax]
             coord = c3[ax]
             new_coord = coord + (d > 0).to(torch.int32) * 2 - 1
@@ -293,37 +356,66 @@ def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
             coord = torch.where(inside, new_coord, coord)
             flip = inside
             for side, out_m in ((-1, out_lo), (1, out_hi)):
-                if g.axis_bc(ax, side, particles=True) == P_PERIODIC:
+                bc = g.axis_bc(ax, side, particles=True)
+                face = ax + (0 if side < 0 else 3)
+                if bc == P_PERIODIC:
                     coord = torch.where(out_m, n_ax if side < 0 else 1, coord)
                     flip = flip | out_m
-                else:
+                elif bc == REFLECT_PARTICLES:
                     # Reflect: flip momentum + remaining displacement; the
                     # particle stays on the wall and keeps walking
                     # (move_p.cc:327-334).
                     u3[ax] = torch.where(out_m, -u3[ax], u3[ax])
                     dp3[ax] = torch.where(out_m, -dp3[ax], dp3[ax])
+                elif bc == ABSORB_PARTICLES:
+                    # the lane dies on the face; its charge goes to rhob
+                    # (the voxel is the one it is leaving)
+                    rhob = deposit_rhob(rhob, g, xi + NX * (yi + NY * zi),
+                                        pos3[0], pos3[1], pos3[2], w, qsp,
+                                        out_m & alive)
+                    alive = alive & ~out_m
+                    active = active & ~out_m
+                else:
+                    # Custom particle BC (maxwellian_reflux, absorb_tally,
+                    # ...): park for boundary_p with the face code.
+                    pend = torch.where(out_m, CUSTOM_BASE + face, pend)
+                    active = active & ~out_m
             c3[ax] = coord
             pos3[ax] = torch.where(flip, -pos3[ax], pos3[ax])
+            if ax == 0:
+                xi = coord
+            elif ax == 1:
+                yi = coord
         px, py, pz = pos3
         dpx, dpy, dpz = dp3
         ux, uy, uz = u3
         xi, yi, zi = c3
+        if vb_absorbed is not None:
+            rhob = deposit_rhob(rhob, g, xi + NX * (yi + NY * zi), px, py,
+                                pz, w, qsp, vb_absorbed)
 
     pend = torch.where(active, UNFINISHED, pend)
     return ((px, py, pz), (dpx, dpy, dpz), (xi, yi, zi), (ux, uy, uz),
-            alive, pend, acc)
+            alive, pend, acc, rhob)
 
 
 def advance_p(sp: SpeciesState, fcoef, g: Grid, qsp: float, msp: float,
-              acc, max_streak: int = 4, vbc=None) -> PushResult:
+              acc, rhob_flat=None, max_streak: int = 4,
+              vbc=None) -> PushResult:
     """One leapfrog step for one species.  ``acc`` is the shared (nv, 12)
-    accumulator every species adds into, in place; the species comes back
-    as new tensors."""
+    accumulator every species adds into and ``rhob_flat`` the (nv,) flat
+    rhob absorbed lanes deposit into, both in place (None: a zeroed one is
+    made); ``vbc`` the optional per-voxel-face code table.  The species
+    comes back as new tensors, with the pend codes and remaining
+    displacement of every lane."""
     qdt_2mc = (qsp * g.dt) / (2.0 * msp * g.cvac)
     cdt_dx = g.cvac * g.dt * g.rdx
     cdt_dy = g.cvac * g.dt * g.rdy
     cdt_dz = g.cvac * g.dt * g.rdz
     alive = sp.live
+    if rhob_flat is None:
+        rhob_flat = torch.zeros(g.nv, dtype=torch.float32,
+                                device=sp.dx.device)
 
     dx, dy, dz = sp.dx, sp.dy, sp.dz
     rows = fcoef[sp.i.long()]
@@ -345,10 +437,10 @@ def advance_p(sp: SpeciesState, fcoef, g: Grid, qsp: float, msp: float,
 
     pend0 = torch.full((sp.capacity,), DONE, dtype=torch.int32,
                        device=dx.device)
-    (pos, disp, coords, u, alive, pend, acc) = streak_walk(
+    (pos, disp, coords, u, alive, pend, acc, rhob_flat) = streak_walk(
         g, qsp, sp.w, (dx, dy, dz), (dispx, dispy, dispz),
         decode_voxel(sp.i, g), (ux, uy, uz), alive, alive, pend0, acc,
-        max_streak, vbc=vbc)
+        rhob_flat, max_streak, vbc=vbc)
 
     vox = coords[0] + g.NX * (coords[1] + g.NY * coords[2])
     new_sp = sp.replace(
@@ -356,7 +448,8 @@ def advance_p(sp: SpeciesState, fcoef, g: Grid, qsp: float, msp: float,
         ux=u[0], uy=u[1], uz=u[2],
         w=torch.where(alive, sp.w, 0.0), live=alive,
         np=alive.sum(dtype=torch.int32))
-    return PushResult(new_sp, acc, pend)
+    n_pend = ((pend >= 0) & (pend < UNFINISHED)).sum(dtype=torch.int32)
+    return PushResult(new_sp, acc, rhob_flat, pend, disp, n_pend)
 
 
 def center_p(sp: SpeciesState, fcoef, g: Grid, qsp, msp) -> SpeciesState:

@@ -45,7 +45,8 @@ INPUTS = ROOT / "build" / "push_timing"
 CASES = ("2d-sorted", "2d-step7", "3d-rebucket", "3d-step50")
 KERNELS = {"2d": "fused_push2d_kernel", "3d": "fused_push3d_kernel"}
 LANES = ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w", "live", "np")
-MOVED = LANES[:7]                       # the arrays a push writes
+MOVED = LANES[:9]                       # the arrays a push writes (w and
+                                        # live where a wall kills a lane)
 REPS = 20                               # pushes per timing
 
 
