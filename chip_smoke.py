@@ -93,7 +93,29 @@ Phases, each of which must pass (any failure exits non-zero):
      particle walls at +-x, 10 steps on the card: the 3-D kernel without
      home maps once a step, move_p once per handler run (boundary_p's
      num_comm_round + 1 runs), lanes absorbed; then the kernel against its
-     plain version on the lanes the run left.
+     plain version on the lanes the run left;
+ 15. the deck runner: vpic_tpu_torch.__main__.main in process on the
+     64^2 x 64 ppc harris deck, 200 steps with --energies and --checkpt
+     ck:100, then --restore ck.100 to step 200 into a second energies
+     file: the 2-D push kernel exactly once a step in both runs, no
+     unfinished streak, drift below 1e-3, the restart's step-200 energies
+     and its energies-file rows within RESTART_RTOL of the total of the
+     uninterrupted run's, equal particle counts; the checkpoint's bytes and
+     write time and the restore's time; at step 200 the field, hydro,
+     particle (both species) and grid dumps, each timed and read back with
+     utilities/read_dumps.py, and the card's hydro against the CPU's
+     plain hydro of the same state to 1e-5 max|moment|; ms/step with and
+     without the I/O cadence;
+ 16. 3-D restart: the 16^3 x 4 ppc harris residency deck, 10 steps, a
+     checkpoint, 10 more; restored into a new Simulation, 10 steps: the
+     push and the merge kernels once a step, no rebucket added, fields,
+     energies and lanes (live counts, voxel multisets) equal to the
+     uninterrupted run's to the ten-step tolerances;
+ 17. shapes: the deck at its defaults (64 x 16, eps 4 slab, sigma 2
+     block), 160 steps on the card and on the CPU: fields to the ten-step
+     tolerances, the energy non-increasing while over a quarter of the
+     interior field energy is in the conductor and under half its start at
+     the end, and make_beb refusing the mesh coefficients.
 The kernel launch counts of each run are reset just before it and read just
 after it.  Then it prints the kernels' JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -113,6 +135,15 @@ LPI = {}                        # lpi at its published defaults
 REGION_2D = ((128, 128, 1), 16)
 REGION_3D = ((32, 32, 32), 32)
 REGION_GENERAL = ((24, 24, 20), 16)   # nz not a multiple of 8: no bricks
+CLI_STEPS = 200                 # the CLI harris run, checkpointed halfway
+SHAPES_STEPS = 160              # the shapes pulse into the conductor
+# The restart's step-200 energies against the uninterrupted run's, each
+# column to this share of the total energy: the two runs differ only in the
+# float atomics' summation order on the card (both push kernels' deposits),
+# which is chaotic but bounded by the drift guard (1e-3 over 200 steps);
+# 1e-4 is ten times inside it and 100 times the 10-step card-vs-CPU limit.
+RESTART_RTOL = 1e-4
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
@@ -960,6 +991,255 @@ def wall_phases(torch, counters, card):
     return results
 
 
+def _load_read_dumps():
+    """utilities/read_dumps.py, loaded by path (as tests/test_io_diag.py
+    does)."""
+    import importlib.util
+    path = os.path.join(ROOT, "utilities", "read_dumps.py")
+    spec = importlib.util.spec_from_file_location("read_dumps", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _energy_rows(path):
+    """{step: energies row} of an energies file."""
+    rows = np.loadtxt(path, comments="%", ndmin=2)
+    return {int(r[0]): r[1:] for r in rows}
+
+
+def _timed(torch, fn):
+    """(fn's result, ms), the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _same_fields(a, b, what, names=("jfx", "ex", "ey", "cbz")):
+    """Fields to the ten-step tolerances (test_pallas.py:88-94)."""
+    for n in names:
+        x = getattr(a.fields, n).cpu().numpy()
+        y = getattr(b.fields, n).cpu().numpy()
+        err = np.abs(x - y).max()
+        if not err < 5e-7 + 1e-5 * np.abs(x).max():
+            fail(f"{what}: field {n} max abs err {err}")
+
+
+def io_phases(torch, counters, card):
+    """Phases 15-17: the deck runner on the card with a restart and the
+    dumps, the 3-D restart on the residency path, and the shapes deck."""
+    import shutil
+    from vpic_tpu_torch import __main__ as CLI
+    from vpic_tpu_torch import checkpoint as CK
+    from vpic_tpu_torch import dump as DU
+    from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from vpic_tpu_torch.models import harris, shapes
+    from vpic_tpu_torch.ops import field_fuse as FF
+    from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
+    from vpic_tpu_torch.ops import hydro as H
+    from vpic_tpu_torch.ops import residency as RES
+
+    RD = _load_read_dumps()
+    tmp = os.path.join(ROOT, "build", "chip_smoke_io")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+
+    # --- phase 15: python -m vpic_tpu_torch harris, restarted ---
+    n, half = CLI_STEPS, CLI_STEPS // 2
+    e1, e2 = os.path.join(tmp, "E1"), os.path.join(tmp, "E2")
+    ck = os.path.join(tmp, "ck")
+    reset_counts(counters)
+    (sim, state), ms_run = _timed(torch, lambda: CLI.main(
+        ["harris", "--num-step", str(n), "--energies", e1,
+         "--checkpt", f"{ck}:{half}"]))
+    launches = read_counts(counters)
+    reset_counts(counters)
+    (sim2, state2), ms_rst = _timed(torch, lambda: CLI.main(
+        ["harris", "--num-step", str(n), "--restore", f"{ck}.{half}",
+         "--energies", e2]))
+    launches2 = read_counts(counters)
+    g = sim.grid
+    if (g.nx, g.ny, g.nz) != (64, 64, 1) or \
+            sum(st.count for st in sim.species) != 262144:
+        fail("the CLI harris deck is not 64^2 x 64 ppc")
+    print(f"run CLI: python -m vpic_tpu_torch harris --num-step {n} "
+          f"--energies --checkpt ck:{half}: {ms_run / 1e3:.1f} s (deck "
+          f"build and initialize included); launches {launches}; restart "
+          f"from ck.{half}: {ms_rst / 1e3:.1f} s, launches {launches2} "
+          f"({card})")
+    if launches[FP.KERNEL] != n or launches2[FP.KERNEL] != n - half:
+        fail(f"CLI harris: the 2-D push kernel launched "
+             f"{launches[FP.KERNEL]} times in {n} steps and "
+             f"{launches2[FP.KERNEL]} in the restart's {n - half}")
+    rows1, rows2 = _energy_rows(e1), _energy_rows(e2)
+    drift, _ = check_run(torch, sim, state, rows1[0], "CLI harris run")
+    check_run(torch, sim2, state2, rows1[0], "CLI harris restart")
+    en1 = sim.energies(state).double().cpu().numpy()
+    en2 = sim2.energies(state2).double().cpu().numpy()
+    err = np.abs(en1 - en2).max() / en1.sum()
+    common = sorted(set(rows1) & set(rows2) - {half})
+    err_rows = max(np.abs(rows1[k] - rows2[k]).max() / rows1[k].sum()
+                   for k in common)
+    np1 = [int(sp.np) for sp in state.species]
+    np2 = [int(sp.np) for sp in state2.species]
+    print(f"run CLI: step {n} energies, restart vs uninterrupted: max "
+          f"column error {err:.3e} of the total (limit {RESTART_RTOL:g}); "
+          f"energies file rows {common}: {err_rows:.3e}; drift {drift:.3e}; "
+          f"particles {np1} vs {np2} ({card})")
+    if not err <= RESTART_RTOL or not err_rows <= RESTART_RTOL or np1 != np2:
+        fail("CLI harris: the restart parts from the uninterrupted run")
+    # the restore alone, and the checkpoint's size and times
+    _, ms_restore = _timed(torch, lambda: CK.restore(f"{ck}.{half}",
+                                                     sim=sim2))
+    name, ms_ck = _timed(torch, lambda: CK.checkpt(
+        state, os.path.join(tmp, "timed"), sim=sim))
+    ck_bytes = os.path.getsize(name + ".npz")
+    print(f"timing ({card}): checkpoint {ms_ck:.1f} ms, {ck_bytes} bytes "
+          f"(npz, compressed); restore {ms_restore:.1f} ms")
+    # the dumps at the last step, read back
+    st_, sp0, sp1 = state, sim.species[0].params, sim.species[1].params
+    dumps = [("fields", lambda: DU.dump_fields(sim, st_, f"{tmp}/fields"))]
+    for spp in (sp0, sp1):
+        dumps += [
+            (f"hydro {spp.name}", lambda spp=spp: DU.dump_hydro(
+                sim, st_, spp.name, f"{tmp}/{spp.name}_hydro")),
+            (f"particles {spp.name}", lambda spp=spp: DU.dump_particles(
+                sim, st_, spp.name, f"{tmp}/{spp.name}_particles"))]
+    dumps.append(("grid", lambda: DU.dump_grid(sim, f"{tmp}/grid")))
+    files = {}
+    for what, fn in dumps:
+        names, ms = _timed(torch, fn)
+        files[what] = names[0]
+        print(f"timing ({card}): dump {what} at step {st_.step}: {ms:.1f} "
+              f"ms, {os.path.getsize(names[0])} bytes")
+    hdr, fields = RD.read_fields(files["fields"])
+    if hdr["step"] != st_.step or not np.array_equal(
+            fields["ey"], state.fields.ey.cpu().numpy()):
+        fail("dump_fields does not read back")
+    for k, spp in enumerate((sp0, sp1)):
+        _, parts = RD.read_particles(files[f"particles {spp.name}"])
+        _, hyd = RD.read_hydro(files[f"hydro {spp.name}"])
+        if len(parts) != np1[k] or not np.isfinite(hyd["rho"]).all() or \
+                not np.abs(hyd["rho"]).max() > 0:
+            fail(f"the {spp.name} dumps do not read back")
+    with open(files["grid"], "rb") as fh:
+        if RD.read_header(fh)["nx"] != g.nx:
+            fail("dump_grid does not read back")
+    # the card's hydro against the plain hydro of the same state on the CPU
+    cpu = state_from_numpy(state_to_numpy(state), device="cpu")
+    for k, spp in enumerate((sp0, sp1)):
+        h_gpu = H.compute_hydro(sim, state, k).cpu().numpy()
+        h_cpu = H.compute_hydro(sim, cpu, k).numpy()
+        e = np.abs(h_gpu - h_cpu).max()
+        print(f"hydro {spp.name}: card vs CPU max abs err {e:.3e}, max "
+              f"|moment| {np.abs(h_cpu).max():.3e} ({card})")
+        if not e <= 1e-5 * np.abs(h_cpu).max():
+            fail(f"hydro {spp.name}: the card differs from the CPU")
+    # ms/step with and without the I/O cadence, over 2 x 2 status intervals
+    # more steps (after the dumps: the steps update the fields in place)
+    status = sim.status_interval
+    state, ms_io = _timed(torch, lambda: sim.run(
+        state, num_step=n + 2 * status, energies_file=e1,
+        checkpt_base=os.path.join(tmp, "cad"), checkpt_interval=2 * status,
+        verbose=False))
+    state, ms_plain = _timed(torch, lambda: sim.run(
+        state, num_step=n + 4 * status, verbose=False))
+    print(f"timing ({card}): {ms_io / (2 * status):.3f} ms/step with the "
+          f"I/O cadence (energies every {status} steps, a checkpoint every "
+          f"{2 * status}), {ms_plain / (2 * status):.3f} ms/step without "
+          f"(host clock, {2 * status} steps each)")
+    del sim, state, sim2, state2, cpu
+
+    # --- phase 16: the 3-D restart on the residency path ---
+    p3 = harris.HarrisParams(nx=16, ny=16, nz=16, nppc=4, Lx=8.0, Ly=8.0,
+                             Lz=8.0, headroom=6.0)
+    sim = harris.build(p3)
+    if not sim._residency_mode()[0]:
+        fail("the 16^3 harris deck does not take the residency path")
+    step = sim.make_step()
+    state = sim.initialize()
+    for _ in range(10):
+        state = step(state)
+    base, ms_ck = _timed(torch, lambda: CK.checkpt(
+        state, os.path.join(tmp, "ck3"), sim=sim))
+    rebuckets = int(state.diag["_res_rebuckets"])
+    for _ in range(10):
+        state = step(state)
+    sim2 = harris.build(p3)
+    back, ms_restore = _timed(torch, lambda: CK.restore(base, sim=sim2))
+    if back.diag["_res_valid"] is not True or \
+            int(back.diag["_res_rebuckets"]) != rebuckets:
+        fail("3-D restore: the residency layout was not restored")
+    back, _, launches = run_steps(torch, sim2, back, 10, counters)
+    print(f"run 3-D restart: 16^3 x 4 ppc harris, checkpoint at step 10 "
+          f"({os.path.getsize(base + '.npz')} bytes, {ms_ck:.1f} ms), "
+          f"restore {ms_restore:.1f} ms, 10 steps after it: launches "
+          f"{launches}, rebuckets {rebuckets} -> "
+          f"{int(back.diag['_res_rebuckets'])} ({card})")
+    if launches[FP3.KERNEL] != 10 or launches[RES.KERNEL] != 10 or \
+            int(back.diag["_res_rebuckets"]) != rebuckets:
+        fail("3-D restart: the push and the merge kernels were not "
+             "launched once a step, or it rebucketed")
+    _same_fields(state, back, "3-D restart")
+    for k, (a, b) in enumerate(zip(state.species, back.species)):
+        va = np.bincount(a.i[a.live].cpu().numpy(), minlength=g.nv)
+        vb = np.bincount(b.i[b.live].cpu().numpy(), minlength=g.nv)
+        moved = int(np.abs(va - vb).sum()) // 2
+        if int(a.np) != int(b.np) or moved > max(1, int(a.np) // 100_000):
+            fail(f"3-D restart: species {k} lanes differ ({moved} voxels)")
+    ea = sim.energies(state).double().cpu().numpy()
+    eb = sim2.energies(back).double().cpu().numpy()
+    if not np.abs(ea - eb).max() / ea.sum() < 1e-6:
+        fail("3-D restart: energies differ")
+    print("run 3-D restart: lanes (live counts, voxel multisets), fields "
+          "and energies equal the uninterrupted run's to the ten-step "
+          "tolerances")
+    del sim, state, sim2, back
+
+    # --- phase 17: shapes (region materials) on the card and the CPU ---
+    runs = []
+    for dev in ("cuda", "cpu"):
+        sim = shapes.build(device=dev)
+        state = sim.initialize()
+        step = sim.make_step()
+        inner = (slice(1, -1),) * 3
+        inside = torch.from_numpy(sim._mat_ids["cmat"][inner] == 2).to(dev)
+        hist = []
+        t0 = time.perf_counter()
+        for _ in range(SHAPES_STEPS):
+            state = step(state)
+            f = state.fields
+            dens = sum(getattr(f, c)[inner] ** 2
+                       for c in ("ex", "ey", "ez", "cbx", "cby", "cbz"))
+            hist.append((float(sim.energies(state).sum()),
+                         float(dens[inside].sum() / dens.sum())))
+        runs.append((sim, state, hist, time.perf_counter() - t0))
+    (sim, state, hist, sec), (sim_c, cpu, _, sec_c) = runs
+    _same_fields(cpu, state, "shapes card vs CPU",
+                 ("ex", "ey", "ez", "cbx", "cby", "cbz"))
+    e0 = float(sim.energies(sim.initialize()).sum())
+    window = [e for e, share in hist if share > 0.25]
+    print(f"run shapes: 64 x 16 cells, eps 4 slab, sigma 2 block, "
+          f"{SHAPES_STEPS} steps on the card ({sec * 1e3 / SHAPES_STEPS:.3f} "
+          f"ms/step with a host read of the energies each step; CPU "
+          f"{sec_c * 1e3 / SHAPES_STEPS:.3f}; {card}): fields == CPU to the "
+          f"ten-step tolerances; energy {e0:.6f} -> {hist[-1][0]:.6f}; "
+          f"{len(window)} steps with over a quarter of it in the conductor")
+    if len(window) < 5 or any(b > a for a, b in zip(window, window[1:])) \
+            or not hist[-1][0] < 0.5 * e0:
+        fail("shapes: the energy rose while the pulse was in the "
+             "conductor, or the conductor did not take it")
+    try:
+        FF.make_beb(sim.grid, sim._material_coeffs(), sim.damp)
+        fail("shapes: make_beb accepted mesh coefficients")
+    except NotImplementedError as e:
+        print(f"run shapes: make_beb refuses the coefficients ({e})")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1315,6 +1595,9 @@ def main():
 
     # --- phases 11-14: wall faces ---
     results.update(wall_phases(torch, counters, card))
+
+    # --- phases 15-17: the deck runner, restarts, dumps, materials ---
+    io_phases(torch, counters, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

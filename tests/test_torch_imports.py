@@ -27,6 +27,9 @@ def test_package_files_found():
     assert "vpic_tpu_torch/__init__.py" in FILES
     assert "vpic_tpu_torch/ops/fused_push.py" in FILES
     assert "vpic_tpu_torch/scripts/field_fuse_proto.py" in FILES
+    for mod in ("__main__", "checkpoint", "diagnostics", "dump", "native/io",
+                "ops/hydro", "models/shapes"):
+        assert f"vpic_tpu_torch/{mod}.py" in FILES, mod
 
 
 @pytest.mark.parametrize("rel", FILES + ["chip_smoke.py"])

@@ -58,15 +58,18 @@ def state_from_numpy(np_state, device="cuda") -> SimState:
                         for n in SPECIES_NAMES})
         for sp in _get(np_state, "species"))
     diag = _get(np_state, "diag") or {}
+    rng = (np_state.get("rng") if isinstance(np_state, dict)
+           else getattr(np_state, "rng", None))
     return SimState(fields=fields, species=species,
                     step=int(np.asarray(_get(np_state, "step"))),
                     diag={k: _diag_value(k, v, device)
-                          for k, v in diag.items()})
+                          for k, v in diag.items()},
+                    rng=None if rng is None else np.array(rng, np.uint32))
 
 
 def state_to_numpy(state: SimState) -> dict:
     """The port's SimState -> {"fields": {...}, "species": [{...}, ...],
-    "step": int, "diag": {...}} of numpy arrays."""
+    "step": int, "diag": {...}, "rng": key or None} of numpy arrays."""
     host = lambda t: (t.detach().cpu().numpy().copy()
                       if isinstance(t, torch.Tensor) else np.asarray(t))
     return dict(
@@ -74,7 +77,8 @@ def state_to_numpy(state: SimState) -> dict:
         species=[{n: host(getattr(sp, n)) for n in SPECIES_NAMES}
                  for sp in state.species],
         step=int(state.step),
-        diag={k: host(v) for k, v in state.diag.items()})
+        diag={k: host(v) for k, v in state.diag.items()},
+        rng=None if state.rng is None else np.array(state.rng, np.uint32))
 
 
 def vbc_from_numpy(vbc, device="cuda") -> torch.Tensor:

@@ -19,8 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .grid import Grid
@@ -132,12 +133,17 @@ class SimState:
     ``step`` is a host int: every cadence decision (sort, cleaners) is made
     on the host from it.  ``diag`` holds named device tensors (counters, the
     3-D home maps) and one host bool, ``_res_valid`` (the residency layout
-    is set up); its keys are fixed at initialize()."""
+    is set up); its keys are fixed at initialize().  ``rng`` is the JAX
+    package's state key, a host uint32 numpy array the port only carries
+    (from initialize() or a restored checkpoint) so that its checkpoints
+    give ``vpic_tpu`` the key it expects; the port's randoms come from the
+    Simulation's ``torch.Generator``."""
 
     fields: FieldState
     species: Tuple[SpeciesState, ...]
     step: int = 0
     diag: Dict[str, object] = dataclasses.field(default_factory=dict)
+    rng: Optional[np.ndarray] = None
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
