@@ -115,10 +115,40 @@ Phases, each of which must pass (any failure exits non-zero):
      block), 160 steps on the card and on the CPU: fields to the ten-step
      tolerances, the energy non-increasing while over a quarter of the
      interior field energy is in the conductor and under half its start at
-     the end, and make_beb refusing the mesh coefficients.
-The kernel launch counts of each run are reset just before it and read just
-after it.  Then it prints the kernels' JSON line, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+     the end, and make_beb refusing the mesh coefficients;
+ 18. collision ops: hard sphere, Takizuka-Abe (intra- and interspecies),
+     large-angle Coulomb and Langevin on 2^19 lanes in a 16^3 periodic box
+     (scripts/bench_collision.py's shape), each applied on the card and on
+     the CPU to the same CPU-made draws: the shuffle permutation, live
+     masks, voxels and weights equal, momenta to 1e-5 max|u|; each timed
+     (CUDA events, its device time and launches from torch.profiler, M
+     particle-collisions/s), and one application must make no
+     synchronizing operation;
+ 19. collisional reconnection: the deck at 32^3 x 128 ppc (2 species of
+     2,097,152 particles, three T&A ops every 5 steps) on the residency
+     path for 20 steps: the 3-D push exactly once a step, a rebucket
+     before the push on every firing step, the merge on every step the
+     exchange did not rebucket, one host sync a step, the species storage
+     and the particle counts kept, no unfinished streak, the energy drift
+     below 3e-2; prints ms/step, then over one 5-step cycle the launches
+     and device ms a step and the busy share (torch.profiler), and the
+     collision stage's device ms and launches a firing;
+ 20. emission: child_langmuir's apply on the diode (after 30 CPU steps)
+     on the card and the CPU from the same draws (new lanes to 3e-5, rhob
+     and acc to 1e-5 of their largest, one move_p launch); then the diode
+     at its defaults on the card: lanes from step 0, the anode's tally 0
+     for 20 steps, then 200 steps with the 2-D WALLS push once a step and
+     move_p once per emitter call, the tally growing; 2 more steps with
+     no synchronizing operation; ms/step, launches, lanes emitted and
+     absorbed a step;
+ 21. aged injection: 3,000 aged lanes, some aimed at an absorbing wall:
+     initialize() on the card and the CPU agree (the same lanes killed,
+     lanes to 2e-6), with one move_p launch.
+Each phase from 18 on prints its seconds.  The kernel launch counts of
+each run are reset just before it and read just after it, and a kernel's
+entry in the kernels' line sums its runs' launches.  Then it prints the
+kernels' JSON line, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -137,6 +167,13 @@ REGION_3D = ((32, 32, 32), 32)
 REGION_GENERAL = ((24, 24, 20), 16)   # nz not a multiple of 8: no bricks
 CLI_STEPS = 200                 # the CLI harris run, checkpointed halfway
 SHAPES_STEPS = 160              # the shapes pulse into the conductor
+COLL_N = 1 << 19                # scripts/bench_collision.py's lanes
+# the collisional tier: Lx = Ly = 16, Lz = 4, tau 5, log_lambda 10
+RECON = dict(nx=32, ny=32, nz=32, nppc=128)
+RECON_STEPS = 20                # four collision firings
+EMIT_QUIET = 20                 # diode steps before the first can arrive
+EMIT_STEPS = 200                # then across the gap
+AGED_LANES = 3000
 # The restart's step-200 energies against the uninterrupted run's, each
 # column to this share of the total energy: the two runs differ only in the
 # float atomics' summation order on the card (both push kernels' deposits),
@@ -511,6 +548,20 @@ def region_deck(vt, shape, ppc, capacity_factor=1.0):
     return sim
 
 
+def synchronizing(torch, fn):
+    """The synchronizing operations fn() makes, as torch's sync debug mode
+    warns at each (its own notice that it is a prototype is not one)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [w for w in caught if "synchroniz" in str(w.message)
+            and "prototype" not in str(w.message)]
+
+
 def reset_counts(counters):
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
@@ -763,21 +814,9 @@ def wall_phases(torch, counters, card):
           f"walk kernel {move_dev:.5f} (torch.profiler; {card})")
 
     # the walled step reads nothing back from the card: not one
-    # synchronizing operation (torch's sync debug mode warns at each)
-    def synchronizing(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        # (the mode's own notice that it is a prototype is not one)
-        return [w for w in caught if "synchroniz" in str(w.message)
-                and "prototype" not in str(w.message)]
-
+    # synchronizing operation (torch's sync debug mode warns at each);
     # a read of the card must be seen, or the check below proves nothing
-    if not synchronizing(lambda: int(state.species[0].np)):
+    if not synchronizing(torch, lambda: int(state.species[0].np)):
         fail("torch's sync debug mode did not see a device read")
     box = {"state": state}
 
@@ -785,7 +824,7 @@ def wall_phases(torch, counters, card):
         for _ in range(2):
             box["state"] = step(box["state"])
 
-    syncs = synchronizing(two_steps)
+    syncs = synchronizing(torch, two_steps)
     state = box["state"]
     print(f"run lpi: {len(syncs)} synchronizing operations in 2 more steps "
           "(torch.cuda.set_sync_debug_mode)")
@@ -1240,6 +1279,268 @@ def io_phases(torch, counters, card):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _device_sum(kernels):
+    """(launches, device ms) summed over device_kernels' entries."""
+    return (sum(c for c, _ in kernels.values()),
+            sum(ms for _, ms in kernels.values()))
+
+
+def stochastic_phases(torch, counters, card, results):
+    """Phases 18-21: the collision ops, card against CPU and timed; the
+    collisional reconnection deck at 32^3 x 128 ppc on the residency path;
+    the emission diode; aged injection.  Adds the runs' launches to the
+    kernels' line entries of the kernels they ran."""
+    import vpic_tpu_torch as vt
+    from vpic_tpu_torch import boundary_ops as BO
+    from vpic_tpu_torch.models import emission, reconnection
+    from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
+    from vpic_tpu_torch.ops import move_p as MP
+    from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.scripts import cuda_ms, device_kernels
+    from vpic_tpu_torch.scripts import stochastic_checks as SC
+
+    # --- phase 18: the collision ops, card against CPU, timed ---
+    t_phase = time.perf_counter()
+    g = SC.collision_grid()
+    n = COLL_N
+    host = [SC.collision_species(n, g, seed=0),
+            SC.collision_species(n, g, seed=1)]
+    on_card = SC.to(host, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for name, op in SC.collision_ops(g, n).items():
+        try:
+            err = SC.compare_collision_op(op, host, g, "cuda")
+        except AssertionError as e:
+            fail(f"collision op {name}, card vs CPU: {e}")
+        if getattr(op, "has_diag", False):
+            call = lambda op=op: op(on_card, None, g, 0, gen, {})
+        else:
+            call = lambda op=op: op(on_card, None, g, 0, gen)
+        syncs = synchronizing(torch, call)
+        if syncs:
+            fail(f"collision op {name} synchronizes with the card: "
+                 f"{syncs[0].message}")
+        ms = cuda_ms(call, 10)
+        launches, dev = _device_sum(device_kernels(call, 5))
+        print(f"collision {name}: card == CPU with the same draws "
+              f"(permutation, live, voxels, weights equal; momenta max abs "
+              f"err {err:.3e}, tolerance {SC.MOM_RTOL} max|u|); {ms:.4f} ms "
+              f"(CUDA events, draws included) = {n / ms / 1e3:.1f} M "
+              f"particle-collisions/s, device {dev:.4f} ms in {launches:.0f} "
+              f"launches per application, 0 synchronizing operations "
+              f"({n} lanes, 16^3 cells; {card})")
+    del host, on_card
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 19: collisional reconnection, 32^3 x 128 ppc, tau 5 ---
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sim = reconnection.build(reconnection.ReconnectionParams(**RECON))
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = sim.initialize()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    g = sim.grid
+    res_on, slack = sim._residency_mode()
+    tau = sim.collision_ops[0].interval
+    if not res_on or sim.make_step().path != "push3d":
+        fail("reconnection 32^3 x 128 does not take the residency path")
+    n0 = [int(sp.np) for sp in state.species]
+    print(f"initialize: reconnection 32^3 x 128 ppc ({n0} particles, "
+          f"{len(sim.collision_ops)} T&A ops every {tau} steps), deck build "
+          f"(host staging) {t_build:.1f} s, initialize() {t_init:.1f} s; "
+          f"residency slack {slack} blocks per brick")
+    e0 = sim.energies(state).double().cpu().numpy()
+    ptrs = [[getattr(sp, k).data_ptr() for k in FP3.LANE_FIELDS]
+            for sp in state.species]
+    sim.relayouts = 0
+    state, elapsed, launches = run_steps(torch, sim, state, RECON_STEPS,
+                                         counters)
+    firings = sum(1 for k in range(RECON_STEPS) if k % tau == 0)
+    post = int(state.diag["_res_rebuckets"])
+    e1 = sim.energies(state).double().cpu().numpy()
+    drift = abs(e1.sum() - e0.sum()) / e0.sum()
+    n1 = [int(sp.np) for sp in state.species]
+    unfinished = int(state.diag["unfinished"])
+    print(f"run reconnection: {RECON_STEPS} steps, "
+          f"{elapsed * 1e3 / RECON_STEPS:.3f} ms/step ({card}, host clock "
+          f"around synchronize); launches {launches}; rebuckets before the "
+          f"push {sim.relayouts} ({firings} firing steps), after it {post} "
+          f"({(sim.relayouts + post) / RECON_STEPS:.2f} a step); host syncs "
+          f"{sim.host_syncs}; unfinished {unfinished}; energy drift "
+          f"{drift:.3e} (bound 3e-2); max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if launches[FP3.KERNEL] != RECON_STEPS:
+        fail(f"reconnection: the 3-D push kernel launched "
+             f"{launches[FP3.KERNEL]} times in {RECON_STEPS} steps")
+    if sim.relayouts != firings:
+        fail(f"reconnection: {sim.relayouts} rebuckets before the push for "
+             f"{firings} collision firings")
+    if launches[RES.KERNEL] != RECON_STEPS - post:
+        fail(f"reconnection: {launches[RES.KERNEL]} merges with {post} "
+             f"rebuckets after the push in {RECON_STEPS} steps")
+    if sim.host_syncs != RECON_STEPS:
+        fail(f"reconnection: {sim.host_syncs} host syncs in {RECON_STEPS} "
+             "steps")
+    if ptrs != [[getattr(sp, k).data_ptr() for k in FP3.LANE_FIELDS]
+                for sp in state.species]:
+        fail("reconnection: the species tensors changed storage")
+    if n1 != n0 or unfinished != 0:
+        fail(f"reconnection: particles {n0} -> {n1}, {unfinished} streaks "
+             "unfinished")
+    if not np.isfinite(e1).all() or not drift < 3e-2:
+        fail(f"reconnection: energy drift {drift} (bound 3e-2)")
+    results[FP3.KERNEL]["launches"] += launches[FP3.KERNEL]
+    results[RES.KERNEL]["launches"] += launches[RES.KERNEL]
+    # one collision cycle under the profiler: launches and device time a
+    # step, and the device's busy share against the host clock's ms/step
+    step = sim.make_step()
+    while state.step % tau:
+        state = step(state)
+    box = {"state": state}
+
+    def cycle():
+        for _ in range(tau):
+            box["state"] = step(box["state"])
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        cycle()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    step_launches = sum(e.count for e in evs) / tau
+    step_dev = sum(e.device_time_total for e in evs) / 1e3 / tau
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cycle()
+    torch.cuda.synchronize()
+    cycle_ms = (time.perf_counter() - t0) * 1e3 / tau
+    # the collision stage alone: the three ops firing on the state
+    state = box["state"]
+    stage_in = list(state.species)
+
+    def stage():
+        sp, d = stage_in, {}
+        for op in sim.collision_ops:
+            sp, d = op(sp, state.fields, g, 0, sim._generator, d)
+        return sp
+
+    coll_launches, coll_dev = _device_sum(device_kernels(stage, 2))
+    coll_ms = cuda_ms(stage, 3)
+    print(f"run reconnection: one {tau}-step cycle: {cycle_ms:.3f} ms/step "
+          f"(host clock), device {step_dev:.3f} ms and {step_launches:.0f} "
+          f"launches a step (torch.profiler), busy share "
+          f"{100 * step_dev / cycle_ms:.1f} %; the collision stage (3 T&A "
+          f"ops, one firing) {coll_ms:.3f} ms (CUDA events), device "
+          f"{coll_dev:.3f} ms in {coll_launches:.0f} launches = "
+          f"{100 * coll_dev / tau / step_dev:.1f} % of the device time a "
+          f"step amortized ({card})")
+    del sim, state, box, stage_in, step, prof
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 20: the emission diode at its defaults ---
+    t_phase = time.perf_counter()
+    sim_h = emission.build(device="cpu")
+    state_h = sim_h.initialize()
+    step_h = sim_h.make_step()
+    for _ in range(30):
+        state_h = step_h(state_h)
+    MP.launches = 0
+    try:
+        err, new = SC.compare_child_langmuir(sim_h, state_h, "cuda")
+    except AssertionError as e:
+        fail(f"child_langmuir card vs CPU: {e}")
+    if MP.launches != 1:
+        fail(f"child_langmuir on the card launched move_p {MP.launches} "
+             "times")
+    print(f"compare: child_langmuir card == CPU with the same draws on the "
+          f"diode after 30 steps ({int(state_h.species[0].np)} live lanes, "
+          f"{new} new): live and voxels equal, weights to {SC.WEIGHT_RTOL} of "
+          f"themselves, offsets and momenta "
+          f"max abs err {err:.3e} (tolerance {SC.LANE_ATOL}), rhob and acc "
+          f"within {SC.FIELD_RTOL} of their largest; 1 move_p launch")
+    sim = emission.build()
+    state = sim.initialize()
+    step = sim.make_step()
+    key = [k for k in state.diag if k.startswith("absorb_tally/")][0]
+    if step.path != "push2d":
+        fail("emission does not take the 2-D kernel path")
+    state = step(state)
+    first = int(state.species[0].np)
+    for _ in range(EMIT_QUIET - 1):
+        state = step(state)
+    quiet = int(state.diag[key])
+    if first == 0 or quiet != 0:
+        fail(f"emission: {first} lanes after step 0, anode tally {quiet} "
+             f"after {EMIT_QUIET} steps")
+    kept0 = int(state.species[0].np) + quiet
+    state, elapsed, launches = run_steps(torch, sim, state, EMIT_STEPS,
+                                         counters)
+    tally = int(state.diag[key])
+    live = int(state.species[0].np)
+    if launches[FP.KERNEL] != EMIT_STEPS or \
+            launches[MP.KERNEL] != EMIT_STEPS * len(sim.emitters):
+        fail(f"emission: launches {launches} in {EMIT_STEPS} steps (the "
+             "WALLS push once a step, move_p once per emitter call)")
+    if not tally > 0 or int(state.diag["unfinished"]) != 0 or \
+            int(state.species[0].live.sum()) != live:
+        fail(f"emission: anode tally {tally} after {EMIT_QUIET + EMIT_STEPS}"
+             " steps, or lanes lost")
+    results["fused_push2d_walls"]["launches"] += launches[FP.KERNEL]
+    results["move_p"]["launches"] += launches[MP.KERNEL]
+    box = {"state": state}
+
+    def two_steps():
+        for _ in range(2):
+            box["state"] = step(box["state"])
+
+    syncs = synchronizing(torch, two_steps)
+    if syncs:
+        fail(f"emission: the step synchronizes with the card: "
+             f"{syncs[0].message} ({syncs[0].filename}:{syncs[0].lineno})")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            box["state"] = step(box["state"])
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    print(f"run emission: 32 x 8 cells, {EMIT_STEPS} steps after "
+          f"{EMIT_QUIET} (lanes after step 0: {first}; anode tally 0 until "
+          f"step {EMIT_QUIET}), {elapsed * 1e3 / EMIT_STEPS:.3f} ms/step "
+          f"({card}, host clock around synchronize); hand-kernel launches "
+          f"{launches}; {(live + tally - kept0) / EMIT_STEPS:.2f} lanes "
+          f"emitted and {tally / EMIT_STEPS:.2f} absorbed a step "
+          f"({live} live, {tally} tallied); 0 synchronizing operations in 2 "
+          f"more steps; over 10 more: {sum(e.count for e in evs) / 10:.0f} "
+          f"launches and {sum(e.device_time_total for e in evs) / 1e4:.4f} "
+          "device ms a step (torch.profiler)")
+    del sim, state, box, sim_h, state_h
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 21: aged injection on the card ---
+    t_phase = time.perf_counter()
+    MP.launches = 0
+    try:
+        err, killed = SC.compare_aged_initialize(vt, "cuda", AGED_LANES)
+    except AssertionError as e:
+        fail(f"aged injection, card vs CPU: {e}")
+    if MP.launches != 1 or killed == 0:
+        fail(f"aged injection: {MP.launches} move_p launches for one aged "
+             f"species, {killed} lanes killed at the wall")
+    results["move_p"]["launches"] += MP.launches
+    print(f"compare: aged initialize() card == CPU on {AGED_LANES} aged "
+          f"lanes: the same {killed} killed at the absorbing wall, lanes "
+          f"max abs err {err:.3e} (tolerance {SC.AGED_ATOL}); 1 move_p "
+          "launch")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -1598,6 +1899,9 @@ def main():
 
     # --- phases 15-17: the deck runner, restarts, dumps, materials ---
     io_phases(torch, counters, card)
+
+    # --- phases 18-21: collisions, emission, aged injection ---
+    stochastic_phases(torch, counters, card, results)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

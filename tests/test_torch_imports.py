@@ -28,7 +28,8 @@ def test_package_files_found():
     assert "vpic_tpu_torch/ops/fused_push.py" in FILES
     assert "vpic_tpu_torch/scripts/field_fuse_proto.py" in FILES
     for mod in ("__main__", "checkpoint", "diagnostics", "dump", "native/io",
-                "ops/hydro", "models/shapes"):
+                "ops/hydro", "models/shapes", "collision", "emitter",
+                "models/reconnection", "models/emission"):
         assert f"vpic_tpu_torch/{mod}.py" in FILES, mod
 
 

@@ -12,7 +12,10 @@ module here keeps its counterpart's name and is tested against it.
 
 Layer map:
   deck.Simulation     -- input-deck vocabulary + step orchestration
-  models.*            -- the ported decks (harris, lpi, weibel)
+  models.*            -- the ported decks (harris, lpi, weibel, shapes,
+                         reconnection, emission)
+  collision           -- binary and unary collision ops (draw, then apply)
+  emitter             -- Child-Langmuir emission, runtime and aged injection
   boundary            -- boundary_p: parked lanes to their handlers, leftovers
   boundary_ops        -- custom particle BCs (reflux, absorb tally, link)
   ops.fused_push      -- bucket sort + the 2-D CUDA push kernel

@@ -6,8 +6,9 @@ analogue, deck/main.cc):
         [--energies FILE] [--checkpt BASE[:INTERVAL]] [--quota SECONDS]
 
 DECK is a ``.py`` file defining ``build(argv) -> Simulation`` (or
-``build()``), or a built-in deck: harris, weibel, lpi or shapes.  The deck
-runs on ``--device``, the CUDA card by default.  The reference compiles
+``build()``), or a built-in deck: harris, weibel, lpi, shapes,
+reconnection or emission.  The deck runs on ``--device``, the CUDA card by
+default.  The reference compiles
 decks into the binary; here the deck is imported and its Simulation driven
 by ``Simulation.run()``.  ``main(argv)`` returns (sim, state).
 """
@@ -21,7 +22,8 @@ import inspect
 
 import torch
 
-BUILT_INS = ("harris", "weibel", "lpi", "shapes")
+BUILT_INS = ("harris", "weibel", "lpi", "shapes", "reconnection",
+             "emission")
 
 
 def load_deck(deck: str):

@@ -1,3 +1,3 @@
 """Built-in decks ported so far (analogues of the reference's sample/ decks)."""
 
-from . import harris, lpi, shapes, weibel  # noqa: F401
+from . import emission, harris, lpi, reconnection, shapes, weibel  # noqa: F401
