@@ -23,7 +23,9 @@ Phases, each of which must pass (any failure exits non-zero):
      of 131,072 particles) through Simulation's step for 200 steps; the push
      kernel (one launch a step for both species) must have been launched at
      least once a step, no streak may be left unfinished and the energy
-     drift must stay below 1e-3 (bench.py's guard); prints the run's share
+     drift must stay below 1e-3 (bench.py's guard); the step's field
+     advance must be field_beb, launched exactly once a step; prints the
+     run's share
      of global-path deposit rounds; then 7 more steps, and the kernel
      against its plain version again on the last push before the next
      sort (the most global-path rounds);
@@ -42,7 +44,8 @@ Phases, each of which must pass (any failure exits non-zero):
   8. 3-D run: the full-width 3-D harris deck through the residency step for
      100 steps (bench.py --deck harris3d's widths and steps); both 3-D
      kernels must have been launched (the push and the merge once a step
-     for both species), no streak left unfinished, drift below 1e-3, and
+     for both species, field_beb exactly once a step),
+     no streak left unfinished, drift below 1e-3, and
      the species tensors must be the same storage after the run; prints the
      run's global-path share; then the merge kernel's launches and device
      time per step over 10 more steps (torch.profiler), and the push kernel
@@ -59,9 +62,15 @@ Phases, each of which must pass (any failure exits non-zero):
      library call (CUDA events), with the kernel's and the library call's
      device time;
  10. field trio: the entry point vpic_tpu_torch.scripts.field_fuse_proto
-     (its main()) at the 64^2 x 4 ppc harris fields and at the 32^3 harris
-     fields (4 ppc), fused kernel against the plain trio to 1e-6 abs on each
-     output, exactly one launch per trio, both timed;
+     (its main()) at the 64^2, 32^3, 128^2, 256^2 and 64^3 harris fields
+     (4 ppc): each instance of field_beb that takes the grid (the grid
+     instance, the step's, always; the cluster instance where its slabs
+     fit, which must be the first three) against the plain trio to 1e-6
+     abs on each output, exactly one launch per trio;
+     each timed with CUDA events and torch.profiler, with its bound; where
+     build/parent holds the parent commit's tree (git archive), its
+     field_beb kernel too, in turns (parent, instances, plain, plain,
+     instances, parent);
  11. lpi: the lpi deck at its published width (128 x 32 cells, 16 ppc in the
      slab: 2 species of 32,768 particles; absorbing field walls, reflux
      particle walls, the laser through user_field_injection) on the card:
@@ -69,8 +78,9 @@ Phases, each of which must pass (any failure exits non-zero):
      the first sort (lanes, pend codes, remaining displacement, acc, rhob),
      both timed; then 200 steps, which must launch the push kernel exactly
      once a step and the reflux walk kernel (move_p) once per handler call,
-     keep every particle (reflux re-emits what reaches a wall) and stay
-     finite; prints ms/step, launches, and over 20 more steps the kernel
+     keep every particle (reflux re-emits what reaches a wall), stay
+     finite and run the plain field trio (absorbing faces and the laser
+     hook: no field_beb launch); prints ms/step, launches, and over 20 more steps the kernel
      launches a step and the device's busy share (torch.profiler); 2 more
      steps must make no synchronizing operation (torch's sync debug
      mode); then
@@ -115,7 +125,8 @@ Phases, each of which must pass (any failure exits non-zero):
      block), 160 steps on the card and on the CPU: fields to the ten-step
      tolerances, the energy non-increasing while over a quarter of the
      interior field energy is in the conductor and under half its start at
-     the end, and make_beb refusing the mesh coefficients;
+     the end, the plain field trio on the card (no field_beb launch), and
+     make_beb refusing the mesh coefficients;
  18. collision ops: hard sphere, Takizuka-Abe (intra- and interspecies),
      large-angle Coulomb and Langevin on 2^19 lanes in a 16^3 periodic box
      (scripts/bench_collision.py's shape), each applied on the card and on
@@ -126,7 +137,8 @@ Phases, each of which must pass (any failure exits non-zero):
      synchronizing operation;
  19. collisional reconnection: the deck at 32^3 x 128 ppc (2 species of
      2,097,152 particles, three T&A ops every 5 steps) on the residency
-     path for 20 steps: the 3-D push exactly once a step, a rebucket
+     path for 20 steps: the 3-D push and field_beb exactly once a step, a
+     rebucket
      before the push on every firing step, the merge on every step the
      exchange did not rebucket, one host sync a step, the species storage
      and the particle counts kept, no unfinished streak, the energy drift
@@ -146,7 +158,8 @@ Phases, each of which must pass (any failure exits non-zero):
      lanes to 2e-6), with one move_p launch.
 Each phase from 18 on prints its seconds.  The kernel launch counts of
 each run are reset just before it and read just after it, and a kernel's
-entry in the kernels' line sums its runs' launches.  Then it prints the
+entry in the kernels' line sums its runs' launches (field_beb's those of
+phases 5, 8 and 19, the main paths).  Then it prints the
 kernels' JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -181,6 +194,14 @@ AGED_LANES = 3000
 # 1e-4 is ten times inside it and 100 times the 10-step card-vs-CPU limit.
 RESTART_RTOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the parent commit's tree (git archive), where present: phase 10 times its
+# field_beb kernel in turns with this tree's
+PARENT = os.path.join(ROOT, "build", "parent")
+# the field trio's entry point: the step's 2-D and 3-D grids, 128^2 (the
+# largest 2-D grid of the cluster instance), 256^2 and 64^3 (beyond it)
+TRIO_SIZES = ([], ["--nx", "32", "--ny", "32", "--nz", "32"],
+              ["--nx", "128", "--ny", "128"], ["--nx", "256", "--ny", "256"],
+              ["--nx", "64", "--ny", "64", "--nz", "64"])
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
@@ -621,6 +642,95 @@ def merge_per_step(torch, step, state, n=10):
             sum(e.device_time_total for e in hits) / 1e3 / n, state)
 
 
+def trio_once_a_step(sim, launches, n_steps, what):
+    """The step's field advance ran field_beb exactly once a step; returns
+    its launches."""
+    fields = sim.make_step().fields
+    got = launches["field_beb"]
+    print(f"{what}: field advance {fields!r}, field_beb launches {got} in "
+          f"{n_steps} steps")
+    if fields != "field_beb" or got != n_steps:
+        fail(f"{what}: field_beb launched {got} times in {n_steps} steps "
+             f"(field advance {fields!r})")
+    return got
+
+
+def plain_trio(sim, launches, what):
+    """A deck the fused trio does not cover: the plain trio, no field_beb
+    launch."""
+    fields = sim.make_step().fields
+    print(f"{what}: field advance {fields!r}, field_beb launches "
+          f"{launches['field_beb']}")
+    if not fields.startswith("plain: ") or launches["field_beb"] != 0:
+        fail(f"{what}: field advance {fields!r} with "
+             f"{launches['field_beb']} field_beb launches")
+
+
+def field_trio_phase(torch, RF, FF, counters, card, beb_main):
+    """Phase 10: the entry point scripts.field_fuse_proto at TRIO_SIZES,
+    each instance that takes the grid (and the parent tree's kernel in
+    turns, where build/parent holds one) against the plain trio; returns
+    field_beb's entry of the kernels' line, with the main path's launches
+    (phases 5 and 8)."""
+    parent = os.path.isfile(os.path.join(PARENT, "vpic_tpu_torch", "csrc",
+                                         "field_beb.cu"))
+    if not parent:
+        print("field trio: no parent tree under build/parent; the parent's "
+              "kernel is not timed")
+    reset_counts(counters)
+    trio = [RF.main(a + (["--parent", PARENT] if parent else []))
+            for a in TRIO_SIZES]
+    launches = read_counts(counters)
+    calls = sum(r["kernel_calls"] for r in trio)
+    print(f"run field trio: launches {launches}, {calls} fused trios")
+    if launches[FF.KERNEL] != calls or calls == 0:
+        fail(f"{launches[FF.KERNEL]} field_beb launches for {calls} trios")
+    for r in trio:
+        nvox = r["shape"][0] * r["shape"][1] * r["shape"][2]
+        # 12 arrays read and 9 written; 81 float operations a voxel (3 x 6
+        # in each half advance_b, 3 x 15 in advance_e)
+        bms, _ = bound_ms((12 + 9) * 4 * nvox, 81 * nvox)
+        r["bound"] = (bms, (12 + 9) * 4 * nvox, 81 * nvox)
+        cluster = tuple(r["shape"]) in ((3, 66, 66), (34, 34, 34),
+                                        (3, 130, 130))
+        if r["instance"] != "grid" or \
+                ("cluster" in r["instances"]) != cluster:
+            fail(f"field trio {r['shape']}: step's instance "
+                 f"{r['instance']}, ran {sorted(r['instances'])}")
+        print(f"timing ({card}): field trio {r['shape']}: plain "
+              f"{r['plain_ms'][0]:.5f} / {r['plain_ms'][1]:.5f} ms (device "
+              f"{r['plain_device_ms']:.5f}, {r['plain_launches_per_trio']:.0f}"
+              f" launches) per trio; bound {bms:.6f} ms "
+              f"({r['bound'][1] / 1e6:.2f} MB); step's instance "
+              f"{r['instance']}")
+        for w, x in r["instances"].items():
+            if not x["device_ms"] > 0:
+                fail(f"field trio {r['shape']} {w}: the profiler saw no "
+                     "kernel")
+            if not x["max_abs_err"] <= 1e-6:
+                fail(f"field trio {r['shape']} {w}: max abs err "
+                     f"{x['max_abs_err']}")
+            if w != "parent" and x["launches_per_trio"] != 1:
+                fail(f"field trio {r['shape']} {w}: "
+                     f"{x['launches_per_trio']} launches a trio")
+            print(f"  {w}: {x['ms'][0]:.5f} / {x['ms'][1]:.5f} ms on CUDA "
+                  f"events, device {x['device_ms']:.6f} ms "
+                  f"({100 * bms / x['device_ms']:.1f} % of the bound), max "
+                  f"abs err {x['max_abs_err']:.3e} (best of 3 windows of "
+                  "100; turns: parent, instances, plain, plain, instances, "
+                  "parent)")
+    r = trio[0]
+    _, nbytes, flops = r["bound"]
+    bms, bby = bound_ms(nbytes, flops)
+    return dict(
+        name=FF.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/field_beb.cu",
+        replaces="scripts/field_fuse_proto.py:41",
+        launches=beb_main,
+        max_abs_err=max(x["max_abs_err"] for x in trio), ms=r["ms"][0],
+        plain_ms=r["plain_ms"][0], bound_ms=bms, bound_by=bby,
+        library_ms=None)
+
+
 def residency_prototypes(counters, card):
     """Phase 9: the entry points scripts.residency_proto and
     residency_grid_bench, each run with the kernel counts set to 0 just
@@ -780,6 +890,7 @@ def wall_phases(torch, counters, card):
             torch.isfinite(sp.ux).all() for sp in state.species):
         fail("lpi: non-finite energies or momenta")
     results["fused_push2d_walls"]["launches"] = launches[FP.KERNEL]
+    plain_trio(sim, launches, "lpi")
     walks = len(sim.pbc_handlers) * len(state.species) * N_STEPS
     if launches[MP.KERNEL] != walks:
         fail(f"lpi: the reflux walk kernel launched {launches[MP.KERNEL]} "
@@ -1244,6 +1355,7 @@ def io_phases(torch, counters, card):
         sim = shapes.build(device=dev)
         state = sim.initialize()
         step = sim.make_step()
+        beb0 = FF.launches
         inner = (slice(1, -1),) * 3
         inside = torch.from_numpy(sim._mat_ids["cmat"][inner] == 2).to(dev)
         hist = []
@@ -1256,6 +1368,8 @@ def io_phases(torch, counters, card):
             hist.append((float(sim.energies(state).sum()),
                          float(dens[inside].sum() / dens.sum())))
         runs.append((sim, state, hist, time.perf_counter() - t0))
+        if dev == "cuda":
+            plain_trio(sim, {FF.KERNEL: FF.launches - beb0}, "shapes")
     (sim, state, hist, sec), (sim_c, cpu, _, sec_c) = runs
     _same_fields(cpu, state, "shapes card vs CPU",
                  ("ex", "ey", "ez", "cbx", "cby", "cbz"))
@@ -1293,6 +1407,7 @@ def stochastic_phases(torch, counters, card, results):
     import vpic_tpu_torch as vt
     from vpic_tpu_torch import boundary_ops as BO
     from vpic_tpu_torch.models import emission, reconnection
+    from vpic_tpu_torch.ops import field_fuse as FF
     from vpic_tpu_torch.ops import fused_push as FP
     from vpic_tpu_torch.ops import fused_push3d as FP3
     from vpic_tpu_torch.ops import move_p as MP
@@ -1393,6 +1508,8 @@ def stochastic_phases(torch, counters, card, results):
              "unfinished")
     if not np.isfinite(e1).all() or not drift < 3e-2:
         fail(f"reconnection: energy drift {drift} (bound 3e-2)")
+    results[FF.KERNEL]["launches"] += trio_once_a_step(
+        sim, launches, RECON_STEPS, "reconnection")
     results[FP3.KERNEL]["launches"] += launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] += launches[RES.KERNEL]
     # one collision cycle under the profiler: launches and device time a
@@ -1661,6 +1778,7 @@ def main():
     if launches[FP.KERNEL] < N_STEPS:
         fail(f"2-D push kernel launched {launches[FP.KERNEL]} times in "
              f"{N_STEPS} steps")
+    beb_main = trio_once_a_step(sim, launches, N_STEPS, "2-D run")
     results[FP.KERNEL]["launches"] = launches[FP.KERNEL]
     # 7 more steps (the first of them sorts): the lanes of the last push
     # before the next sort, where the most rounds take the global path
@@ -1839,6 +1957,7 @@ def main():
              f"{rebuckets} rebuckets in {N_STEPS_3D} steps")
     if sim.host_syncs != N_STEPS_3D:
         fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps")
+    beb_main += trio_once_a_step(sim, launches, N_STEPS_3D, "3-D run")
     results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
     print("run 3-D: the species tensors kept their storage over the "
@@ -1863,36 +1982,8 @@ def main():
     results.update(residency_prototypes(counters, card))
 
     # --- phase 10: the fused field trio's entry point ---
-    reset_counts(counters)
-    trio = [RF.main([]), RF.main(["--nx", "32", "--ny", "32", "--nz", "32"])]
-    launches = read_counts(counters)
-    calls = sum(r["kernel_calls"] for r in trio)
-    print(f"run field trio: launches {launches}, {calls} fused trios")
-    if launches[FF.KERNEL] != calls or calls == 0:
-        fail(f"{launches[FF.KERNEL]} field_beb launches for {calls} trios")
-    for r in trio:
-        if not r["max_abs_err"] <= 1e-6:
-            fail(f"field trio {r['shape']}: max abs err {r['max_abs_err']}")
-        print(f"timing ({card}): field trio {r['shape']}: kernel "
-              f"{r['ms'][0]:.5f} / {r['ms'][1]:.5f} ms (device "
-              f"{r['device_ms']:.5f}), plain {r['plain_ms'][0]:.5f} / "
-              f"{r['plain_ms'][1]:.5f} ms (device {r['plain_device_ms']:.5f})"
-              f" per trio; launches per trio {r['launches_per_trio']} vs "
-              f"plain {r['plain_launches_per_trio']}; max abs err "
-              f"{r['max_abs_err']:.3e} (CUDA events, best of 3 windows of "
-              "100, kernel-plain-kernel-plain)")
-    r = trio[0]
-    nvox = r["shape"][0] * r["shape"][1] * r["shape"][2]
-    # 12 arrays read and 9 written; 81 float operations a voxel (3 x 6 in
-    # each half advance_b, 3 x 15 in advance_e)
-    bms, bby = bound_ms((12 + 9) * 4 * nvox, 81 * nvox)
-    results[FF.KERNEL] = dict(
-        name=FF.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/field_beb.cu",
-        replaces="scripts/field_fuse_proto.py:41",
-        launches=launches[FF.KERNEL],
-        max_abs_err=max(x["max_abs_err"] for x in trio), ms=r["ms"][0],
-        plain_ms=r["plain_ms"][0], bound_ms=bms, bound_by=bby,
-        library_ms=None)
+    results[FF.KERNEL] = field_trio_phase(torch, RF, FF, counters, card,
+                                          beb_main)
 
     # --- phases 11-14: wall faces ---
     results.update(wall_phases(torch, counters, card))

@@ -9,7 +9,10 @@ Tolerances: compaction, block copy and mailbox bit for bit (pure data
 movement, a -0.0 and a NaN included), each one kernel launch a call (the
 mailbox into a given ``out=``); the field trio to 1e-6 abs on each of its 9 outputs,
 ghost planes included (the prototype's own bound; the kernel rounds every
-operation as the plain version does, so 0 is expected)."""
+operation as the plain version does, so 0 is expected), in both instances
+(the grid one, the step's, everywhere; the cluster one where its slabs
+fit) at the step's grids and beyond, with every face rule the kernel
+takes, one launch a trio."""
 
 import dataclasses
 
@@ -188,13 +191,17 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_field_beb_kernel_matches_plain(cuda, case):
-    g, f, m, damp = CASES[case](cuda)
-    clone = lambda: dataclasses.replace(
+def _clone(f):
+    return dataclasses.replace(
         f, **{n: getattr(f, n).clone() for n in ST.FIELD_NAMES})
-    fk, fr = clone(), clone()
-    beb = FF.make_beb(g, m, damp)
+
+
+def _check_beb(g, f, m, damp, which):
+    """One trio of instance ``which`` against the plain trio: every field
+    to 1e-6 abs (0 expected), jf untouched, one launch of that instance."""
+    fk, fr = _clone(f), _clone(f)
+    beb = FF.make_beb(g, m, damp, which)
+    assert beb.instance == which
     n0 = FF.launches
     out = beb(fk)
     FF.beb_ref(fr, g, m, damp)
@@ -202,8 +209,66 @@ def test_field_beb_kernel_matches_plain(cuda, case):
     assert out is fk and FF.launches == n0 + 1
     for n in FF.FIELDS:
         err = float((getattr(fk, n) - getattr(fr, n)).abs().max())
-        assert err <= 1e-6, f"{n}: max abs err {err}"
+        assert err <= 1e-6, f"{which} {n}: max abs err {err}"
     assert torch.equal(fk.jfx, f.jfx)
+    _one_launch(lambda: beb(fk), f"field_beb_{which}_kernel")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_field_beb_kernel_matches_plain(cuda, case):
+    g, f, m, damp = CASES[case](cuda)
+    assert FF.cluster_fits((g.nx, g.ny, g.nz))
+    for which in FF.INSTANCES:
+        _check_beb(g, f, m, damp, which)
+
+
+# Face sets: every rule _GHOST takes on both sides of an axis, and mixed.
+FACES = {
+    "periodic": (_Y,) * 6,
+    "pec_x": (_P, _Y, _Y, _P, _Y, _Y),
+    "sym_pmc": (_S, _M, _P, _S, _M, _P),
+    "mixed": (_M, _P, _S, _Y, _S, _M),
+}
+SIZES = [(64, 64, 1), (128, 128, 1), (32, 32, 32), (37, 23, 11),
+         (256, 256, 1), (64, 64, 64)]
+
+
+@pytest.mark.parametrize("faces", sorted(FACES))
+@pytest.mark.parametrize("n", SIZES, ids=lambda n: "x".join(map(str, n)))
+def test_field_beb_instances_match_plain_at_size(cuda, n, faces):
+    """Random fields (a NaN and an inf in E and cB: the flat axis's 0 x
+    products must give what the plain trio gives) on the step's grids, an
+    odd grid and the two large ones; the cluster instance wherever its
+    slabs fit (64^2, 128^2, 32^3 and the odd grid), the grid instance (the
+    step's) everywhere."""
+    g = GT.partition_periodic_box(0, 0, 0, 1.0, 0.8, 0.6, *n, dt=0.01,
+                                  cvac=1.0, eps0=1.0)
+    for face, bc in enumerate(FACES[faces]):
+        g = g.with_bc(face, fbc=bc)
+    rng = np.random.default_rng(sum(n))
+    arrs = {k: rng.standard_normal(g.shape).astype(np.float32)
+            for k in ST.FIELD_NAMES}
+    arrs["ez"][1, 2, 3] = np.nan
+    arrs["cby"][1, 3, 2] = np.inf
+    f = ST.FieldState(**{k: torch.as_tensor(a, device=cuda)
+                         for k, a in arrs.items()})
+    m = ST.MaterialCoeffs(**{k: torch.tensor(v, device=cuda) for k, v in dict(
+        decayx=0.91, decayy=0.93, decayz=0.95, drivex=0.97, drivey=0.96,
+        drivez=0.94, rmux=0.8, rmuy=0.85, rmuz=0.9, nonconductive=1.0,
+        epsx=1.2, epsy=1.1, epsz=1.3).items()})
+    fits = FF.cluster_fits(n)
+    assert fits == (n not in ((256, 256, 1), (64, 64, 64)))
+    fr = FF.beb_ref(_clone(f), g, m, 0.01)
+    for inst in ("grid", "cluster") if fits else ("grid",):
+        fk = FF.make_beb(g, m, 0.01, inst)(_clone(f))
+        torch.cuda.synchronize()
+        for k in FF.FIELDS:
+            a, b = getattr(fk, k), getattr(fr, k)
+            assert torch.equal(a.isnan(), b.isnan()), f"{inst} {k}: NaNs"
+            ok = ~a.isnan()
+            err = float((a[ok] - b[ok]).abs().nan_to_num(0.0).max())
+            assert torch.equal(a[ok].isinf(), b[ok].isinf()), f"{inst} {k}"
+            assert err <= 1e-6, f"{inst} {k}: max abs err {err}"
 
 
 def test_failed_launch_raises(cuda, monkeypatch):
@@ -213,14 +278,19 @@ def test_failed_launch_raises(cuda, monkeypatch):
     beb = FF.make_beb(g, m, damp)
     big = torch.zeros((16, 256), device=cuda)
     offs = torch.tensor([0, 128], dtype=torch.int32, device=cuda)
+    cluster_beb = FF.make_beb(g, m, damp, "cluster")
     monkeypatch.setattr(FF, "THREADS", 2048)
+    monkeypatch.setattr(FF, "CLUSTER_THREADS", 2048)
     monkeypatch.setattr(C, "THREADS", 2048)
     with pytest.raises(RuntimeError, match="launch failed"):
         beb(f)
     with pytest.raises(RuntimeError, match="launch failed"):
+        cluster_beb(f)
+    with pytest.raises(RuntimeError, match="launch failed"):
         C.mailbox(big, offs, 256)
     monkeypatch.undo()
     beb(f)
+    cluster_beb(f)
     C.mailbox(big, offs, 256)
     torch.cuda.synchronize()
 

@@ -1,10 +1,10 @@
 """vpic_tpu_torch: the PyTorch + CUDA port of vpic_tpu, for one NVIDIA GPU.
 
-Plain tensor code is PyTorch; the particle pushes and the residency merge
-are CUDA kernels written by hand for Hopper (csrc/fused_push2d.cu,
-fused_push3d.cu, merge_p.cu), and so are the JAX package's prototype
-kernels, the fused field trio and the residency compaction and mailbox
-(csrc/field_beb.cu, compact_block.cu, mailbox.cu), each with a plain
+Plain tensor code is PyTorch; the particle pushes, the residency merge and
+the fused field trio are CUDA kernels written by hand for Hopper
+(csrc/fused_push2d.cu, fused_push3d.cu, merge_p.cu, field_beb.cu), and so
+are the JAX package's prototype kernels, the residency compaction and
+mailbox (csrc/compact_block.cu, mailbox.cu), each with a plain
 PyTorch twin that CPU tensors use; the pushes walk absorbing, custom and
 region particle faces too.  The entry points run on the CUDA card
 unless the caller asks for the CPU.  vpic_tpu stays the reference: every
@@ -21,7 +21,8 @@ Layer map:
   ops.fused_push      -- bucket sort + the 2-D CUDA push kernel
   ops.fused_push3d    -- brick sort + the 3-D CUDA push kernel (outboxes)
   ops.residency       -- per-brick residency: exchange plan + CUDA merge
-  ops.field_fuse      -- the field trio as one CUDA kernel (not in the step yet)
+  ops.field_fuse      -- the field trio as one CUDA kernel (the step's field
+                         advance where it covers the deck)
   ops.compact         -- block compaction + mailbox copies (residency prototypes)
   scripts.*           -- the prototype kernels' entry points (python -m ...)
   ops.push            -- particle engine, plain path (advance_p/sort/energy/rho)

@@ -41,6 +41,7 @@ from . import boundary as B
 from .grid import (ABSORB_PARTICLES, FIRST_CUSTOM_PBC, REFLECT_PARTICLES,
                    Grid, partition_absorbing_box, partition_metal_box,
                    partition_periodic_box)
+from .ops import field_fuse as FF
 from .ops import fields as F
 from .ops import fused_push as FP
 from .ops import fused_push3d as FP3
@@ -779,9 +780,11 @@ class Simulation:
         and the user_particle_injection hook (after the push's handlers on
         the kernel paths, before boundary_p on the general path, as the JAX
         package runs them), accumulator unload, advance_b / advance_e /
-        advance_b (with the user current and field injection hooks), then
-        the cleaners on their cadence.  The step updates the state's field
-        tensors in place (rhob keeps the absorbed charge across steps) and
+        advance_b (with the user current and field injection hooks; the
+        fused field_beb kernel where it covers the deck, see
+        field_advance), then the cleaners on their cadence.  The step
+        updates the state's field tensors in place (rhob keeps the
+        absorbed charge across steps) and
         returns the new SimState.  The residency step updates the species
         tensors in place too, on both devices: the merge writes into them
         and a rebucket copies its sort into them (also on the steps a
@@ -798,13 +801,12 @@ class Simulation:
         the bricks do not tile): sort_p on each species' sort_interval,
         fused_push3d_multi without home maps, boundary_p with its
         num_comm_round handler runs.  The returned function's ``path`` names
-        the path."""
+        the path and its ``fields`` the field advance (field_advance)."""
         self._check_device()
         g = self.grid
         path, sortK = self._path()
         res_on, res_slack = self._residency_mode()
         m = self._material_coeffs()
-        damp = self.damp
         sp_params = [st.params for st in self.species]
         qms = [(spp.q, spp.m) for spp in sp_params]
         sort_extents = self._live_bounds()
@@ -815,8 +817,8 @@ class Simulation:
         ce = self.clean_div_e_interval
         cb = self.clean_div_b_interval
         sy = self.sync_shared_interval
-        u_field = self.user_field_injection
         u_current = self.user_current_injection
+        trio, trio_label = self.field_advance()
         handlers = dict(self.pbc_handlers)
         vbc = self._local_vbc()
         walled = P.has_walls(g, vbc)
@@ -1027,11 +1029,7 @@ class Simulation:
             if u_current is not None:
                 f = u_current(f, step)
 
-            F.advance_b(f, g, 0.5)
-            F.advance_e(f, g, m, damp)
-            if u_field is not None:
-                f = u_field(f, step)
-            F.advance_b(f, g, 0.5)
+            f = trio(f, step)
 
             if ce > 0 and step % ce == 0:
                 clean_e(f, species)
@@ -1043,7 +1041,42 @@ class Simulation:
                             diag=diag, rng=state.rng)
 
         advance.path = path
+        advance.fields = trio_label
         return advance
+
+    def field_advance(self):
+        """The step's field advance as ``(trio, label)``: ``trio(f, step)``
+        runs advance_b(1/2), advance_e and advance_b(1/2) on the fields in
+        place and returns them.  Where ops/field_fuse covers the grid and
+        material and the deck has no user_field_injection hook (it runs
+        between advance_e and the second advance_b), that is the fused
+        field_beb kernel (its plain version on CPU tensors) and ``label``
+        is "field_beb"; else the three plain ops with the hook between
+        them, and ``label`` is "plain: <why>" (every reason, "; " between
+        them).  A choice made from the deck's features when the step is
+        made, never a fallback on a failure: on the card a failed build or
+        launch raises."""
+        g = self.grid
+        m = self._material_coeffs()
+        damp = self.damp
+        hook = self.user_field_injection
+        why = [w for w in (
+            "user_field_injection runs between advance_e and the second "
+            "advance_b" if hook is not None else None,
+            FF.refusal(g, m)) if w]
+        if not why:
+            beb = FF.make_beb(g, m, damp)
+            return (lambda f, step: beb(f)), "field_beb"
+
+        def plain(f, step):
+            F.advance_b(f, g, 0.5)
+            F.advance_e(f, g, m, damp)
+            if hook is not None:
+                f = hook(f, step)
+            F.advance_b(f, g, 0.5)
+            return f
+
+        return plain, "plain: " + "; ".join(why)
 
     def make_step(self) -> Callable[[SimState], SimState]:
         """The full step on one device (no decomposition to lift over)."""

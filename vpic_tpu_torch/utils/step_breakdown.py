@@ -11,16 +11,19 @@ ppc, L = 16) -- and prints three things, each as one JSON line:
   around it, mean ms over repeats.  2-D: sort, interpolator load, push,
   accumulator unload, field advance, cleaners, energies; the sort and
   cleaners run every time here though the step runs them only on their
-  cadence.  3-D adds the residency layers: the rebucket (the slack-padded
-  brick sort, run by the step only when the exchange cannot merge), the
+  cadence; the field advance is what the step calls (``fields``, from
+  ``Simulation.field_advance``: the fused field_beb kernel on these decks,
+  named in ``field_advance``).  3-D adds the residency layers: the
+  rebucket (the slack-padded brick sort, run by the step only when the
+  exchange cannot merge), the
   rebucket's copy of its sort into the state's extent slices, the exchange
   plan (block_counts + plan_exchange + any_misplaced) and the merge, in
   place as the step runs it; each 3-D push and merge runs on a fresh copy
   of the same lanes, made before the call and outside its time;
 * ``step``: ms per step of the real step (host clock around synchronize),
   the device's busy share of that time from torch.profiler (kernel time
-  summed / wall time), kernel launches per step and, in 3-D, rebuckets,
-  merges and host syncs over the window;
+  summed / wall time), kernel launches per step, field_beb launches per
+  step and, in 3-D, rebuckets, merges and host syncs over the window;
 * ``kernels``: the kernels that took the most device time in that window.
 """
 
@@ -34,6 +37,7 @@ import time
 import torch
 
 from ..models import harris
+from ..ops import field_fuse as FF
 from ..ops import fields as F
 from ..ops import fused_push as FP
 from ..ops import fused_push3d as FP3
@@ -84,10 +88,7 @@ def _common_layers(sim, state, species, qms, acc):
         I.unload_accumulator(f, acc, g)
         F.synchronize_jf(f, g)
 
-    def advance_fields():
-        F.advance_b(f, g, 0.5)
-        F.advance_e(f, g, m, sim.damp)
-        F.advance_b(f, g, 0.5)
+    trio, _ = sim.field_advance()
 
     def cleaners():
         F.clear_rhof(f)
@@ -106,7 +107,7 @@ def _common_layers(sim, state, species, qms, acc):
     return {
         "load_interpolator": _time(lambda: I.load_interpolator(f, g)),
         "unload": _time(unload),
-        "fields": _time(advance_fields),
+        "fields": _time(lambda: trio(f, 0)),
         "cleaners": _time(cleaners),
         "energies": _time(lambda: sim.energies(state)),
     }
@@ -226,6 +227,7 @@ def main(argv):
     state = sim.initialize()
     layers = (_layers_3d if three else _layers_2d)(sim, state)
     print(json.dumps({"deck": args.deck, "nx": nx, "nppc": nppc,
+                      "field_advance": sim.field_advance()[1],
                       "layers_ms": layers}))
 
     # the real step, then a profiled window of it
@@ -243,6 +245,7 @@ def main(argv):
 
     reb0 = int(state.diag["_res_rebuckets"]) if three else 0
     RES.launches = 0
+    FF.launches = 0
     sim.host_syncs = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -262,6 +265,7 @@ def main(argv):
         "device_busy_ms_per_step": busy,
         "device_busy_share": busy / prof_ms if prof_ms else None,
         "kernels_per_step": n_kernels,
+        "field_beb_per_step": FF.launches / n,
         "particles": sum(int(sp.np) for sp in state.species)}
     if three:
         step_info.update(
