@@ -155,15 +155,41 @@ Phases, each of which must pass (any failure exits non-zero):
      absorbed a step;
  21. aged injection: 3,000 aged lanes, some aimed at an absorbing wall:
      initialize() on the card and the CPU agree (the same lanes killed,
-     lanes to 2e-6), with one move_p launch.
+     lanes to 2e-6), with one move_p launch;
+ 22. the nine sample decks (scripts/deck_checks.py): twostream (64 x 1 x 1),
+     weibel_gold (16 x 1 x 1), beam_plas, force_free (32 x 16 x 16),
+     sc08 (32 x 8 x 16), asymm4sp at vpic_tpu's defaults, dipole (16^3) and
+     waveguide (48 x 8) at their oracles' sizes, cygnus (190 x 1 x 18),
+     each through its oracle's steps and asserts (the JAX package's tests
+     of the deck); the path each takes, field_beb exactly once a step on
+     the six particle decks and never on dipole, waveguide and cygnus (the
+     plain trio: absorbing faces or a field hook), the push kernel once a
+     step wherever there are species, no merge (no deck here has room for
+     residency), no unfinished streak; ms/step, launches, and over 10 more
+     steps the launches and device ms a step and the busy share
+     (torch.profiler); each deck's first 5 steps on the card and on the CPU
+     from one initial state (lanes to 3e-5, fields to 5e-7 + 1e-5 max|a|,
+     energies to 1e-5 of their sum); the 2-D push kernel against its plain
+     version on twostream's lanes (one-cell y and z axes) sorted and as the
+     step left them, field_beb against the plain trio bit for bit on
+     twostream's and weibel_gold's fields, the 3-D kernel with home maps on
+     force_free's and without on sc08's (pec and reflecting x faces);
+ 23. sc08 at the reference demo's 150 x 25 x 100 x 1 ppc (749,998
+     particles), one device, the general path: 50 steps with every
+     particle kept and drift below 5e-3; the deck's build (host staging) and
+     initialize() seconds, ms/step, launches, busy share and peak device
+     memory (also above what was allocated before the build); then the 3-D
+     kernel without home maps against its plain version on the lanes the
+     run left, both timed.
 Each phase from 18 on prints its seconds.  The kernel launch counts of
 each run are reset just before it and read just after it, and a kernel's
 entry in the kernels' line sums its runs' launches (field_beb's those of
-phases 5, 8 and 19, the main paths).  Then it prints the
+phases 5, 8, 19, 22 and 23, the main paths).  Then it prints the
 kernels' JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import sys
@@ -1658,6 +1684,267 @@ def stochastic_phases(torch, counters, card, results):
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
 
 
+class CountedRun:
+    """run(sim, state, n) for scripts.deck_checks' oracles: n steps through
+    run_steps (every kernel count set to 0 just before and read just
+    after), summed over the calls: steps, seconds and launches, and the
+    largest peak of device memory."""
+
+    def __init__(self, torch, counters):
+        self.torch, self.counters = torch, counters
+        self.steps, self.seconds, self.peak = 0, 0.0, 0
+        self.launches = {k: 0 for k in counters}
+
+    def __call__(self, sim, state, n):
+        state, elapsed, launches = run_steps(self.torch, sim, state, n,
+                                             self.counters)
+        self.steps += n
+        self.seconds += elapsed
+        self.peak = max(self.peak, self.torch.cuda.max_memory_allocated())
+        for k, v in launches.items():
+            self.launches[k] += v
+        return state
+
+
+def profiled_steps(torch, sim, state, n):
+    """(kernel launches a step, device ms a step, ms a step, busy share)
+    over n more steps under torch.profiler, and the state after them."""
+    step = sim.make_step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state = step(state)
+        torch.cuda.synchronize()
+        win_ms = (time.perf_counter() - t0) * 1e3 / n
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in kern) / 1e3 / n
+    return (sum(e.count for e in kern) / n, busy, win_ms, busy / win_ms,
+            state)
+
+
+def compare_push3d_plain(torch, PT, FP3, g, species, fcoef, qms, what,
+                         homes=None):
+    """The 3-D kernel (home maps or none, no outbox) against its plain
+    version on the same inputs; returns the max abs error over the compared
+    lane state and accumulator."""
+    print(f"compare: 3-D kernel vs plain, {what}")
+    zeros = lambda: torch.zeros((g.nv, 12), device=fcoef.device)
+    FP3.deposits = None
+    sk, acc_k, *_, unf_k = FP3.fused_push3d_multi(
+        PT.clone_species(species), fcoef, zeros(), g, qms, homes=homes)
+    sr, acc_r, *_, unf_r = FP3.fused_push3d_multi_ref(
+        PT.clone_species(species), fcoef, zeros(), g, qms, homes=homes)
+    torch.cuda.synchronize()
+    global_share(FP3, what)
+    if int(unf_k) != int(unf_r):
+        fail(f"{what}: unfinished {int(unf_k)}/{int(unf_r)} (kernel/plain)")
+    err = 0.0
+    for k, (a, b) in enumerate(zip(sk, sr)):
+        if not torch.equal(a.live, b.live):
+            fail(f"{what}: species {k} live masks differ")
+        err = max(err, compare_lanes(torch, k, a, b, lane_diff(torch, a, b)))
+    return max(err, compare_acc(acc_k, acc_r))
+
+
+def compare_beb(torch, FF, sim, state, what):
+    """field_beb (the step's instance) against the plain trio on clones of
+    the state's fields: bit for bit on every array, one launch."""
+    from vpic_tpu_torch.scripts import same_bits
+    from vpic_tpu_torch.state import FIELD_NAMES
+    f = state.fields
+    fk = f.replace(**{n: getattr(f, n).clone() for n in FIELD_NAMES})
+    fr = f.replace(**{n: getattr(f, n).clone() for n in FIELD_NAMES})
+    g, m = sim.grid, sim._material_coeffs()
+    n0 = FF.launches
+    FF.make_beb(g, m, sim.damp)(fk)
+    FF.beb_ref(fr, g, m, sim.damp)
+    torch.cuda.synchronize()
+    if FF.launches != n0 + 1:
+        fail(f"{what}: field_beb launched {FF.launches - n0} times")
+    for n in FIELD_NAMES:
+        if not same_bits(getattr(fk, n), getattr(fr, n)):
+            fail(f"{what}: field_beb's {n} differs from the plain trio")
+    print(f"compare: field_beb == plain trio bit for bit on every array, "
+          f"{what} ({g.nx}x{g.ny}x{g.nz}), one launch")
+    return 0.0
+
+
+# phase 22's expected path per deck (scripts.deck_checks' sizes)
+DECK_PATHS = dict(twostream="push2d", weibel_gold="push2d",
+                  beam_plas="push2d", force_free="push3d", sc08="general",
+                  asymm4sp="push2d", dipole="push3d", waveguide="push2d",
+                  cygnus="general")
+DECK_WINDOW = 10                # profiled steps after each deck's oracle
+DECK_CPU_STEPS = 5              # card against CPU from one initial state
+SC08_STEPS = 50                 # sc08 at the demo size
+
+
+def deck_phases(torch, counters, card, results):
+    """Phases 22-23: the nine sample decks at their sizes (scripts.
+    deck_checks) through their oracles on the card, each card against CPU
+    for 5 steps and their kernels against their plain versions on the
+    decks' own states; then sc08 at the reference demo's 150 x 25 x 100.
+    Adds the runs' launches to the kernels' line entries of the kernels
+    they ran."""
+    from vpic_tpu_torch.ops import field_fuse as FF
+    from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
+    from vpic_tpu_torch.ops import interp as I
+    from vpic_tpu_torch.ops import push as P
+    from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.scripts import deck_checks as DC
+    from vpic_tpu_torch.utils import push_timing as PT
+
+    # --- phase 22: the nine decks, each through its oracle ---
+    t_phase = time.perf_counter()
+    err2, err3, errb = 0.0, 0.0, 0.0
+    for name in DC.DECKS:
+        t0 = time.perf_counter()
+        run = CountedRun(torch, counters)
+        try:
+            r = DC.oracle(name, "cuda", run)
+        except AssertionError as e:
+            fail(f"{name} oracle on the card: {e}")
+        sim, state = r["sim"], r["state"]
+        step = sim.make_step()
+        n, L = run.steps, run.launches
+        push = FP.KERNEL if step.path == "push2d" else FP3.KERNEL
+        particles = bool(sim.species)
+        if step.path != DECK_PATHS[name]:
+            fail(f"{name}: path {step.path}, not {DECK_PATHS[name]}")
+        if name in DC.FIELD_BEB:
+            if step.fields != "field_beb" or L[FF.KERNEL] != n:
+                fail(f"{name}: field advance {step.fields!r}, field_beb "
+                     f"launched {L[FF.KERNEL]} times in {n} steps")
+        elif not step.fields.startswith("plain: ") or L[FF.KERNEL] != 0:
+            fail(f"{name}: field advance {step.fields!r} with "
+                 f"{L[FF.KERNEL]} field_beb launches")
+        if L[push] != (n if particles else 0) or \
+                L[FP.KERNEL] + L[FP3.KERNEL] != L[push]:
+            fail(f"{name}: push launches {L} in {n} steps")
+        if L[RES.KERNEL]:
+            fail(f"{name}: the merge ran without residency")
+        if int(state.diag["unfinished"]) != 0:
+            fail(f"{name}: unfinished streaks")
+        walled = P.has_walls(sim.grid, sim._local_vbc())
+        entry = push + ("_walls" if walled else "")
+        results[entry]["launches"] += L[push]
+        results[RES.KERNEL]["launches"] += L[RES.KERNEL]
+        results[FF.KERNEL]["launches"] += L[FF.KERNEL]
+        calls, dev_ms, win_ms, busy, state = profiled_steps(
+            torch, sim, state, DECK_WINDOW)
+        try:
+            c = DC.card_vs_cpu(name, "cuda", DECK_CPU_STEPS)
+        except AssertionError as e:
+            fail(f"{name} card vs CPU: {e}")
+        g = sim.grid
+        facts = {k: v for k, v in r.items() if k not in ("sim", "state")}
+        print(f"run {name}: {g.nx}x{g.ny}x{g.nz}, "
+              f"{sum(st.count for st in sim.species)} particles, path "
+              f"{step.path}, field advance {step.fields!r}; oracle passed "
+              f"{facts}; {n} steps at {run.seconds * 1e3 / n:.3f} ms/step "
+              f"({card}, host clock around synchronize); hand-kernel "
+              f"launches {L}; over {DECK_WINDOW} profiled steps "
+              f"{calls:.1f} launches and {dev_ms:.4f} device ms a step, "
+              f"{win_ms:.3f} ms/step, busy share {100 * busy:.1f} %; card "
+              f"vs CPU over {DECK_CPU_STEPS} steps from one state: lanes "
+              f"{c['lane']:.3e}, fields {c['field']:.3e} of their largest, "
+              f"energies {c['energy']:.3e} of their sum; "
+              f"{time.perf_counter() - t0:.1f} s")
+        qms = [(st.params.q, st.params.m) for st in sim.species]
+        fcoef = I.load_interpolator(state.fields, g)
+        if name in ("twostream", "weibel_gold"):
+            if name == "twostream":
+                sorted_sp = [FP.bucket_sort_p(sp, g, extent=st.count)
+                             for sp, st in zip(state.species, sim.species)]
+                err2 = max(err2, compare_push(
+                    torch, PT, FP, g, sorted_sp, fcoef, qms,
+                    f"twostream {g.nx}x{g.ny}x{g.nz} after "
+                    f"{n + DECK_WINDOW} steps, sorted"))
+                err2 = max(err2, compare_push(
+                    torch, PT, FP, g, list(state.species), fcoef, qms,
+                    f"twostream {g.nx}x{g.ny}x{g.nz} after "
+                    f"{n + DECK_WINDOW} steps, as the step left them"))
+            errb = max(errb, compare_beb(torch, FF, sim, state,
+                                         f"{name} after {n} steps"))
+        if name == "force_free":
+            sp_h = [FP3.brick_sort_p_home(sp, g, extent=st.count)
+                    for sp, st in zip(state.species, sim.species)]
+            err3 = max(err3, compare_push3d_plain(
+                torch, PT, FP3, g, [s for s, _ in sp_h], fcoef, qms,
+                f"force_free {g.nx}x{g.ny}x{g.nz} home maps, after "
+                f"{n + DECK_WINDOW} steps", homes=[h for _, h in sp_h]))
+        if name == "sc08":
+            err3 = max(err3, compare_push3d_plain(
+                torch, PT, FP3, g, list(state.species), fcoef, qms,
+                f"sc08 {g.nx}x{g.ny}x{g.nz} without home maps (pec and "
+                f"reflecting x faces), after {n + DECK_WINDOW} steps"))
+        del sim, state, r, fcoef
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 23: sc08 at the reference demo's grid ---
+    t_phase = time.perf_counter()
+    # what earlier phases left (their Simulations hold reference cycles)
+    # is collected, and the peak is also given above what stays allocated
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    run = CountedRun(torch, counters)
+    try:
+        r = DC.sc08_demo("cuda", run, n_steps=SC08_STEPS)
+    except AssertionError as e:
+        fail(f"sc08 {DC.SC08_DEMO}: {e}")
+    sim, state = r["sim"], r["state"]
+    g = sim.grid
+    step = sim.make_step()
+    L = run.launches
+    if step.path != "general" or FP3.supports3d(g) or \
+            L[FP3.KERNEL] != SC08_STEPS or L[FF.KERNEL] != SC08_STEPS or \
+            int(state.diag["unfinished"]) != 0:
+        fail(f"sc08 demo: path {step.path}, launches {L}, unfinished "
+             f"{int(state.diag['unfinished'])}")
+    results[FP3.KERNEL]["launches"] += L[FP3.KERNEL]
+    results[FF.KERNEL]["launches"] += L[FF.KERNEL]
+    calls, dev_ms, win_ms, busy, state = profiled_steps(
+        torch, sim, state, DECK_WINDOW)
+    n_part = sum(st.count for st in sim.species)
+    qms = [(st.params.q, st.params.m) for st in sim.species]
+    fcoef = I.load_interpolator(state.fields, g)
+    species = list(state.species)
+    err3 = max(err3, compare_push3d_plain(
+        torch, PT, FP3, g, species, fcoef, qms,
+        f"sc08 {g.nx}x{g.ny}x{g.nz} x 1 ppc without home maps, after "
+        f"{SC08_STEPS + DECK_WINDOW} steps"))
+    ms3, plain3 = (PT.time_push(fn, g, species, fcoef, qms)
+                   for fn in (FP3.fused_push3d_multi,
+                              FP3.fused_push3d_multi_ref))
+    dev3 = PT.push_device_ms(FP3.fused_push3d_multi, "fused_push3d_kernel",
+                             g, species, fcoef, qms)
+    print(f"run sc08 demo: {g.nx}x{g.ny}x{g.nz} x 1 ppc ({g.nx * g.ny * g.nz}"
+          f" cells, {n_part} particles), general path; deck build (host "
+          f"staging) {r['build_s']:.1f} s, initialize() "
+          f"{r['initialize_s']:.1f} s; {SC08_STEPS} steps at "
+          f"{run.seconds * 1e3 / SC08_STEPS:.3f} ms/step ({card}, host clock "
+          f"around synchronize), every particle kept, drift "
+          f"{r['drift']:.3e}; hand-kernel launches {L}; over {DECK_WINDOW} "
+          f"profiled steps {calls:.1f} launches and {dev_ms:.4f} device ms a "
+          f"step, {win_ms:.3f} ms/step, busy share {100 * busy:.1f} %; peak "
+          f"device memory {run.peak / 2**20:.1f} MiB, "
+          f"{(run.peak - base) / 2**20:.1f} MiB above what was allocated "
+          "before the deck's build")
+    print(f"timing ({card}): 3-D kernel without home maps on the sc08 demo "
+          f"state {ms3:.4f} ms (CUDA events), device {dev3:.5f} ms "
+          f"(torch.profiler), plain {plain3:.4f} ms per push of both species")
+    for k, e in ((FP.KERNEL, err2), (FP3.KERNEL, err3), (FF.KERNEL, errb)):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], e)
+    del sim, state, r, species, fcoef
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -1993,6 +2280,9 @@ def main():
 
     # --- phases 18-21: collisions, emission, aged injection ---
     stochastic_phases(torch, counters, card, results)
+
+    # --- phases 22-23: the nine sample decks, sc08 at the demo size ---
+    deck_phases(torch, counters, card, results)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -119,3 +119,21 @@ def test_module_entry_point(tmp_path):
         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "Completed step 4 of 4" in out.stdout
+
+
+# the nine decks ported after the runner: each runs by name at its defaults
+NINE = ("twostream", "weibel_gold", "beam_plas", "force_free", "sc08",
+        "asymm4sp", "dipole", "waveguide", "cygnus")
+
+
+@pytest.mark.parametrize("deck", NINE)
+def test_built_in_deck_runs(deck):
+    """python -m vpic_tpu_torch DECK --num-step 2 on the CPU, in process:
+    the port's module, two steps, finite energies, every staged particle
+    kept (none of these decks loses one in two steps)."""
+    assert CLI.load_deck(deck).__name__ == f"vpic_tpu_torch.models.{deck}"
+    sim, state = CLI.main([deck, "--device", "cpu", "--num-step", "2"])
+    assert sim.device.type == "cpu" and state.step == 2
+    assert torch.isfinite(sim.energies(state)).all()
+    assert [int(sp.np) for sp in state.species] == \
+        [st.count for st in sim.species]

@@ -148,3 +148,67 @@ def test_field_trio_refuses_mesh_coefficients():
     vac.define_material("vacuum", 1.0)
     vac.define_field_array()
     assert FF.supports_beb(vac.grid, vac._material_coeffs())
+
+
+# ---- tests/test_materials.py's one-device cases on the port ----
+
+def _material_box(extra=None, region=None):
+    """test_materials.py's make_sim: a 16^3 periodic box, vacuum and
+    optionally one region material."""
+    n = 16
+    sim = vt.Simulation(seed=0, device="cpu")
+    sim.define_units(1.0, 1.0)
+    sim.define_timestep(0.5 / (n * np.sqrt(3.0)))
+    sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (n, n, n))
+    sim.define_material("vacuum", 1.0)
+    m = sim.define_material(*extra[0], **extra[1]) if extra else None
+    sim.define_field_array(damp=0.0)
+    if extra and region is not None:
+        sim.set_region_material(region, m)
+    return sim
+
+
+def _wave_energy(sim, steps=60):
+    k = 2 * np.pi * 2
+    sim.set_region_field(vt.everywhere, ey=lambda x, y, z: np.cos(k * x),
+                         bz=lambda x, y, z: np.cos(k * x))
+    state = sim.initialize()
+    step = sim.make_step()
+    e0 = float(sim.energies(state).double().sum())
+    for _ in range(steps):
+        state = step(state)
+    return e0, float(sim.energies(state).double().sum())
+
+
+def test_port_conductor_damps_wave():
+    """test_materials.py::test_conductor_damps_wave: vacuum conserves the
+    wave to 1e-3, a sigma = 20 slab keeps under 0.7 of it."""
+    e0, e1 = _wave_energy(_material_box())
+    assert abs(e1 - e0) / e0 < 1e-3
+    e0, e1 = _wave_energy(_material_box(
+        (("metal",), dict(eps=1.0, sigma=20.0)),
+        lambda x, y, z: 0.4 < x < 0.6))
+    assert e1 < 0.7 * e0
+
+
+def test_port_uniform_dielectric_via_region_expansion():
+    """test_materials.py::test_uniform_dielectric_via_region_expansion:
+    eps = 4 everywhere through the region path (3-D coefficient meshes)
+    conserves the energy to 1e-2."""
+    sim = _material_box((("glass",), dict(eps=4.0)), vt.everywhere)
+    m = sim._material_coeffs()
+    assert m.epsx.ndim == 3 and float(m.epsx.min()) == 4.0
+    e0, e1 = _wave_energy(sim, steps=40)
+    assert abs(e1 - e0) / e0 < 1e-2
+
+
+def test_port_anisotropic_material_coeffs():
+    """test_materials.py::test_anisotropic_material_coeffs."""
+    sim = _material_box((("aniso",), dict(eps=(2.0, 1.0, 1.0),
+                                          mu=(1.0, 3.0, 1.0))),
+                        lambda x, y, z: x > 0.5)
+    m = sim._material_coeffs()
+    assert m.epsx.ndim == 3
+    assert float(m.epsx.max()) == 2.0 and float(m.epsx.min()) == 1.0
+    assert abs(float(m.rmuy.min()) - 1.0 / 3.0) < 1e-6
+    assert not torch.equal(m.epsx, m.epsy)

@@ -166,3 +166,85 @@ def build3d_pair(walls=False, n_particles=5000, seed=0, capacity=24000):
         sims.append(sim)
     sims[0].use_pallas = True
     return tuple(sims)
+
+
+# ---- whole decks built by both packages (tests/test_torch_decks_*.py) ----
+
+GRID_ATTRS = ("nx", "ny", "nz", "x0", "y0", "z0", "x1", "y1", "z1", "dx",
+              "dy", "dz", "dt", "cvac", "eps0", "topology", "field_bc",
+              "particle_bc")
+# every field the step writes, and the hooks' targets
+STEP_FIELDS = ("ex", "ey", "ez", "cbx", "cby", "cbz", "jfx", "jfy", "jfz",
+               "rhob")
+DECK_ATTRS = ("damp", "num_step", "status_interval", "sync_shared_interval",
+              "clean_div_e_interval", "clean_div_b_interval",
+              "num_div_e_round", "num_div_b_round", "num_comm_round",
+              "max_streak")
+
+
+def assert_same_grid(gj, gt):
+    for a in GRID_ATTRS:
+        assert getattr(gj, a) == getattr(gt, a), a
+
+
+def assert_same_build(sj, st):
+    """The two packages' Simulations of one deck are the same build: grid
+    corners, spacings, dt and face codes, the step-loop settings, the
+    materials (with their region id meshes) and per-voxel particle faces,
+    every species' parameters and staged particle rows exactly, and the
+    set_region_field meshes exactly."""
+    assert_same_grid(sj.grid, st.grid)
+    for a in DECK_ATTRS:
+        assert getattr(sj, a) == getattr(st, a), a
+    assert [vars(m) for m in sj.materials] == [vars(m) for m in st.materials]
+    ids_j, ids_t = sj._mat_ids or {}, st._mat_ids or {}
+    assert ids_j.keys() == ids_t.keys()
+    for k in ids_j:
+        assert np.array_equal(ids_j[k], ids_t[k]), k
+    assert (sj._vbc is None) == (st._vbc is None)
+    if sj._vbc is not None:
+        assert np.array_equal(sj._vbc, st._vbc)
+    assert len(sj.species) == len(st.species)
+    for a, b in zip(sj.species, st.species):
+        pa, pb = a.params, b.params
+        assert (pa.name, pa.q, pa.m, pa.capacity, pa.sort_interval, pa.id) \
+            == (pb.name, pb.q, pb.m, pb.capacity, pb.sort_interval, pb.id)
+        assert len(a.xs) == len(b.xs) > 0 or not a.xs and not b.xs
+        assert np.array_equal(np.asarray(a.xs, np.float64),
+                              np.asarray(b.xs, np.float64)), pa.name
+    fj, ft = sj._materialize_fields(), st._materialize_fields()
+    assert fj.keys() == ft.keys()
+    for k in fj:
+        assert np.array_equal(fj[k], ft[k]), k
+
+
+def run_deck_pair(sj, st, n_steps, path=None):
+    """n_steps of vpic_tpu's general path (use_pallas=False) and of the
+    port's step on the CPU from their own initialize(); holds the fields to
+    5e-7 + 1e-5 max|a| and the energies to 1e-6 of their sum
+    (tests/test_pallas.py:88-94) at the start and the end, and the live
+    counts equal.  Both states' energies are taken by the port's float32
+    energies (as tests/test_torch_deck3d.py does: vpic_tpu's own float32
+    field sum is a different summation).  Returns (jax state, port state,
+    jitted vpic_tpu step, port step)."""
+    sj.use_pallas = False
+    a, b = sj.initialize(), st.initialize()
+    adv = jax.jit(sj.make_advance())
+    step = st.make_step()
+    if path is not None:
+        assert step.path == path, step.path
+    energies = lambda s: st.energies(s).double().numpy()
+    for k in range(2):
+        if k:
+            for _ in range(n_steps):
+                a, b = adv(a), step(b)
+        for n in STEP_FIELDS:
+            assert_close_rel(getattr(a.fields, n), getattr(b.fields, n),
+                             1e-5, 5e-7, f"step {k * n_steps}: {n}")
+        e_a, e_b = energies(to_torch(a)), energies(b)
+        assert np.abs(e_a - e_b).max() <= 1e-6 * max(e_a.sum(), 1e-30), \
+            (k * n_steps, e_a, e_b)
+    for x, y in zip(a.species, b.species):
+        assert int(np.asarray(x.live).sum()) == int(np_(y.live).sum()) \
+            == int(y.np)
+    return a, b, adv, step

@@ -12,8 +12,10 @@ module here keeps its counterpart's name and is tested against it.
 
 Layer map:
   deck.Simulation     -- input-deck vocabulary + step orchestration
-  models.*            -- the ported decks (harris, lpi, weibel, shapes,
-                         reconnection, emission)
+  models.*            -- the fifteen decks of vpic_tpu.models (harris,
+                         lpi, weibel, shapes, reconnection, emission,
+                         twostream, weibel_gold, beam_plas, force_free,
+                         sc08, asymm4sp, dipole, waveguide, cygnus)
   collision           -- binary and unary collision ops (draw, then apply)
   emitter             -- Child-Langmuir emission, runtime and aged injection
   boundary            -- boundary_p: parked lanes to their handlers, leftovers

@@ -7,10 +7,11 @@ analogue, deck/main.cc):
 
 DECK is a ``.py`` file defining ``build(argv) -> Simulation`` (or
 ``build()``), or a built-in deck: harris, weibel, lpi, shapes,
-reconnection or emission.  The deck runs on ``--device``, the CUDA card by
-default.  The reference compiles
-decks into the binary; here the deck is imported and its Simulation driven
-by ``Simulation.run()``.  ``main(argv)`` returns (sim, state).
+reconnection, emission, twostream, weibel_gold, beam_plas, force_free,
+sc08, asymm4sp, dipole, waveguide or cygnus.  The deck runs on
+``--device``, the CUDA card by default.  The reference compiles decks into
+the binary; here the deck is imported and its Simulation driven by
+``Simulation.run()``.  ``main(argv)`` returns (sim, state).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import inspect
 import torch
 
 BUILT_INS = ("harris", "weibel", "lpi", "shapes", "reconnection",
-             "emission")
+             "emission", "twostream", "weibel_gold", "beam_plas",
+             "force_free", "sc08", "asymm4sp", "dipole", "waveguide",
+             "cygnus")
 
 
 def load_deck(deck: str):

@@ -30,6 +30,7 @@ the host-int ``state.step``.  The 3-D residency step reads one bool per step
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field as dfield
 from typing import Callable, List, Optional
@@ -38,8 +39,9 @@ import numpy as np
 import torch
 
 from . import boundary as B
-from .grid import (ABSORB_PARTICLES, FIRST_CUSTOM_PBC, REFLECT_PARTICLES,
-                   Grid, partition_absorbing_box, partition_metal_box,
+from .grid import (ABSORB_PARTICLES, FIRST_CUSTOM_PBC, P_PERIODIC,
+                   PERIODIC, REFLECT_PARTICLES, Grid,
+                   partition_absorbing_box, partition_metal_box,
                    partition_periodic_box)
 from .ops import field_fuse as FF
 from .ops import fields as F
@@ -159,6 +161,8 @@ class Simulation:
         # initialize(), on ``device``
         self._generator = None
         self._entropy = np.random.RandomState(seed)
+        # the pool every rank draws alike (sync_rng); one device: rank 0
+        self._sync_entropy = np.random.RandomState(seed + 0x5EED)
         self._rank = 0
         # materials: the stagger-class id meshes (set at
         # define_field_array), and the coefficients built from them once:
@@ -171,10 +175,22 @@ class Simulation:
 
     def seed_entropy(self, seed: int):
         self._entropy = np.random.RandomState(seed + self._rank)
+        self._sync_entropy = np.random.RandomState(seed + 0x5EED)
 
     def rng(self, _i: int = 0) -> np.random.RandomState:
         """Deck-level host RNG pool handle (rng(i) in decks)."""
         return self._entropy
+
+    def sync_rng(self, _i: int = 0) -> np.random.RandomState:
+        """The host RNG pool that draws alike on every rank (sync_rng(i) in
+        decks)."""
+        return self._sync_entropy
+
+    def uniform(self, rng, lo, hi):
+        return lo + (hi - lo) * rng.random_sample()
+
+    def normal(self, rng, mu, sigma):
+        return mu + sigma * rng.standard_normal()
 
     def define_units(self, cvac: float, eps0: float):
         self._cvac = float(cvac)
@@ -210,6 +226,52 @@ class Simulation:
         self.grid = partition_metal_box(
             *lo, *hi, *[int(v) for v in n], *[int(v) for v in topology],
             dt=self._dt, cvac=self._cvac, eps0=self._eps0)
+        return self.grid
+
+    def size_domain(self, nx, ny, nz):
+        """size_domain (vpic.h:380): a particle-reflecting metal box of unit
+        spacing at the origin; the deck then sets the corner and spacings
+        with set_domain_geometry and the faces with set_domain_field_bc /
+        join_domain, the reference's size_domain -> grid->x0/dx ->
+        set_fbc/join_grid order."""
+        self.grid = partition_metal_box(
+            0.0, 0.0, 0.0, float(nx), float(ny), float(nz),
+            int(nx), int(ny), int(nz), 1, 1, 1,
+            dt=self._dt, cvac=self._cvac, eps0=self._eps0)
+        return self.grid
+
+    def set_domain_geometry(self, x0=None, y0=None, z0=None,
+                            dx=None, dy=None, dz=None):
+        """Set the grid's corner and spacings, as a deck writes grid->x0 and
+        grid->dx (sample/cygnus:88-95).  The Grid keeps corners, so a
+        spacing dx becomes x1 = x0 + dx * gnx."""
+        g = self.grid
+        lo = [g.x0 if x0 is None else float(x0),
+              g.y0 if y0 is None else float(y0),
+              g.z0 if z0 is None else float(z0)]
+        hi = [v + (float(d) * n if d is not None else a1 - a0)
+              for v, d, n, a0, a1 in zip(
+                  lo, (dx, dy, dz), (g.gnx, g.gny, g.gnz),
+                  (g.x0, g.y0, g.z0), (g.x1, g.y1, g.z1))]
+        self.grid = dataclasses.replace(g, x0=lo[0], y0=lo[1], z0=lo[2],
+                                        x1=hi[0], y1=hi[1], z1=hi[2])
+        return self.grid
+
+    def join_domain(self, boundary: int, rank: int, src_rank: int = 0):
+        """join_domain (grid/ops.c:119 join_grid), its self-join: with
+        ``rank == src_rank`` the face's axis becomes periodic in both faces
+        (sample/cygnus:96-97's y periodicity of a 2-D deck).  A join
+        between two domains needs decomposition, which is not ported: it
+        raises."""
+        face = int(boundary)
+        if rank != src_rank:
+            raise NotImplementedError(
+                f"join_domain({face}, {rank}, {src_rank}): a join between "
+                "two domains needs domain decomposition, which is not "
+                "ported yet; only the self-join (rank == src_rank) is")
+        axis = face % 3
+        for fc in (axis, axis + 3):
+            self.grid = self.grid.with_bc(fc, fbc=PERIODIC, pbc=P_PERIODIC)
         return self.grid
 
     def set_domain_field_bc(self, face: int, bc: int):
