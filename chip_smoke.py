@@ -181,10 +181,43 @@ Phases, each of which must pass (any failure exits non-zero):
      memory (also above what was allocated before the build); then the 3-D
      kernel without home maps against its plain version on the lanes the
      run left, both timed.
+ 24. harris 2-D at phase 5's 64^2 x 64 ppc decomposed (1, 2, 1): two
+     ranks on the one card (parallel.mesh.launch; the transport is
+     gloo-staged: the exchanged buffers go through pinned host memory),
+     each holding 64 x 32; 6 steps whose energies match phase 5's deck on
+     one domain on the card (rtol 5e-4, atol 1e-7 of their sum,
+     tests/test_sharded.py:45-46), then 194 timed steps: the 2-D WALLS
+     push once a step per rank, every particle kept (the ranks' live
+     lanes summed, none dropped), drift < 1e-3; then on each rank the
+     kernel with its remote faces against its plain version after a
+     migration step, and move_p walking received lanes on against its
+     plain walk (PERF.md §2 row 3's WALLS tolerances);
+ 25. harris3d at phase 6's 32^3 x 128 ppc decomposed (1, 2, 1), 20 steps:
+     the 3-D WALLS push with home maps once a step per rank (the brick
+     sort every step, no residency and no merge), particles conserved,
+     drift < 1e-3, the 3-D kernel with remote faces against its plain
+     version;
+ 26. sc08 at the reference demo's 150 x 25 x 100 x 1 ppc on its (1, 1, 4):
+     four ranks, 50 steps on the general path; every particle kept and
+     drift within twice phase 23's one-domain drift;
+ 27. small decomposed cases: the irregular join (join_domain between
+     ranks, 4 ranks: 64 lanes kept), maxwellian_reflux on a decomposed face
+     (2 ranks: 128 lanes kept), and a (1, 2, 1) harris restart: a
+     checkpoint written at step 10 of 20, restored on (1, 2, 1) and
+     remapped to (1, 1, 1), the step-20 energies against the uninterrupted
+     run's.
+     Phases 24-26 print per rank the transport, staged bytes, host syncs,
+     ms/step (host clock around synchronize), launches and lanes migrated
+     per step and the busy share over 5 profiled steps.
+``python3 chip_smoke.py --decomposed-only`` runs phases 1-2 and 24-27,
+with the one-domain sc08 drift of phase 26 from its own run of phase 23's
+deck; any other argument is refused.
 Each phase from 18 on prints its seconds.  The kernel launch counts of
 each run are reset just before it and read just after it, and a kernel's
 entry in the kernels' line sums its runs' launches (field_beb's those of
-phases 5, 8, 19, 22 and 23, the main paths).  Then it prints the
+phases 5, 8, 19, 22 and 23, the main paths; the decomposed phases' push
+launches go to the WALLS instances' entries, with move_p's).  Then it
+prints the
 kernels' JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -228,6 +261,11 @@ PARENT = os.path.join(ROOT, "build", "parent")
 TRIO_SIZES = ([], ["--nx", "32", "--ny", "32", "--nz", "32"],
               ["--nx", "128", "--ny", "128"], ["--nx", "256", "--ny", "256"],
               ["--nx", "64", "--ny", "64", "--nz", "64"])
+# the decomposed phases: harris 2-D's steps, harris3d's, sc08's
+SHARDED_STEPS = (200, 20, 50)
+SHARDED_CHECK_AT = 6            # harris 2-D's energies against one domain
+SHARDED_RESTART = (10, 10)      # checkpoint after 10 steps, 10 more
+SHARDED_RTOL, SHARDED_ATOL = 5e-4, 1e-7   # tests/test_sharded.py:45-46
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
@@ -1941,11 +1979,184 @@ def deck_phases(torch, counters, card, results):
           f"(torch.profiler), plain {plain3:.4f} ms per push of both species")
     for k, e in ((FP.KERNEL, err2), (FP3.KERNEL, err3), (FF.KERNEL, errb)):
         results[k]["max_abs_err"] = max(results[k]["max_abs_err"], e)
+    drift = r["drift"]
     del sim, state, r, species, fcoef
     print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return drift
+
+
+def print_ranks(res, what, card):
+    """The per-rank lines of a decomposed phase."""
+    for r in res:
+        prof = (f", busy share {100 * r['busy']:.1f} % ({r['calls']:.1f} "
+                f"launches, {r['device_ms']:.3f} device ms a step over 5 "
+                "profiled steps)" if "busy" in r else "")
+        print(f"  {what} rank {r['rank']}: transport {r['transport']}, "
+              f"{r['ms_step']:.3f} ms/step ({card}, host clock around "
+              f"synchronize), staged {r['staged_bytes']:.0f} bytes and "
+              f"{r['host_syncs']:.1f} host syncs a step, "
+              f"{r['migrated']:.1f} lanes migrated a step, launches "
+              f"{r['launches']}{prof}")
+
+
+def sharded_phases(torch, counters, card, results, sc08_drift):
+    from vpic_tpu_torch.models import harris
+    from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
+    from vpic_tpu_torch.ops import move_p as MP
+    from vpic_tpu_torch.parallel import mesh as M
+    from vpic_tpu_torch.scripts import sharded_checks as SC
+
+    # a decomposed deck's push runs the kernels' WALLS instance (remote
+    # faces are wall faces), entered as in phases 11-14 and 22
+    walls = {FP.KERNEL: "fused_push2d_walls", FP3.KERNEL: "fused_push3d_walls"}
+
+    def add(res, kernel_errs):
+        for r in res:
+            for k, v in r["launches"].items():
+                if walls.get(k, k) in results:
+                    results[walls.get(k, k)]["launches"] += v
+        for k, e in kernel_errs.items():
+            k = walls.get(k, k)
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], e)
+
+    def kernels(res, push_kernel, what):
+        errs = {push_kernel: 0.0, MP.KERNEL: 0.0}
+        for r in res:
+            p, mv = r["push"], r["move_p"]
+            print(f"  {what} rank {r['rank']}: {push_kernel} with remote "
+                  f"faces vs plain: max abs err {p['max_abs_err']:.3e}, "
+                  f"{p['remote_parked']} lanes parked at a remote face; "
+                  f"move_p on {mv['walked']} received lanes vs plain: max "
+                  f"abs err {mv['max_abs_err']:.3e}, {mv['left_again']} "
+                  "left again")
+            errs[push_kernel] = max(errs[push_kernel], p["max_abs_err"])
+            errs[MP.KERNEL] = max(errs[MP.KERNEL], mv["max_abs_err"])
+        return errs
+
+    def checked(res, what, n_steps, kernel, once=True):
+        try:
+            SC.conserved(res, what)
+        except AssertionError as e:
+            fail(str(e))
+        for r in res:
+            if r["unfinished"]:
+                fail(f"{what}: {r['unfinished']} streaks unfinished")
+            n = r["launches"][kernel]
+            if n != n_steps if once else n < 1:
+                fail(f"{what}: rank {r['rank']} launched {kernel} {n} times "
+                     f"in {n_steps} steps")
+        print(f"  {what}: lanes {res[0]['lanes'][0]} -> {res[0]['lanes'][1]}"
+              f", dropped {res[0]['dropped']}, drift {res[0]['drift']:.3e}, "
+              f"path {res[0]['path']}, fields {res[0]['fields']}")
+
+    # --- phase 24: harris 2-D decomposed (1, 2, 1) ---
+    t_phase = time.perf_counter()
+    sim = harris.build(harris.HarrisParams())
+    state = sim.initialize()
+    step = sim.make_step()
+    for _ in range(SHARDED_CHECK_AT):
+        state = step(state)
+    e_one = sim.energies(state).double().cpu().numpy()
+    del sim, state, step
+    n2 = SHARDED_STEPS[0]
+    res = M.launch(SC.run_rank, 2, "cuda", args=(
+        "harris", dict(topology=(1, 2, 1)), n2, "cuda", SHARDED_CHECK_AT,
+        True, 5))
+    print(f"run harris 2-D (1, 2, 1): 64^2 x 64 ppc on 2 ranks of one card, "
+          f"{n2} steps")
+    print_ranks(res, "harris 2-D", card)
+    n_timed = n2 - SHARDED_CHECK_AT
+    checked(res, "harris 2-D (1, 2, 1)", n_timed, FP.KERNEL)
+    e_dec = res[0]["e_check"]
+    err = np.abs(e_dec - e_one)
+    lim = SHARDED_RTOL * np.abs(e_one) + SHARDED_ATOL * e_one.sum()
+    print(f"  harris 2-D: step-{SHARDED_CHECK_AT} energies vs one domain: "
+          f"max rel err {(err / np.abs(e_one)).max():.3e} (limit rtol "
+          f"{SHARDED_RTOL}, atol {SHARDED_ATOL} x sum)")
+    if not (err <= lim).all():
+        fail(f"harris 2-D (1, 2, 1): energies {e_dec} vs one domain {e_one}")
+    if res[0]["drift"] >= 1e-3:
+        fail(f"harris 2-D (1, 2, 1): drift {res[0]['drift']}")
+    add(res, kernels(res, FP.KERNEL, "harris 2-D"))
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 25: harris3d decomposed (1, 2, 1) ---
+    t_phase = time.perf_counter()
+    n3 = SHARDED_STEPS[1]
+    res = M.launch(SC.run_rank, 2, "cuda", args=(
+        "harris", dict(nx=32, ny=32, nz=32, nppc=128, Lx=16.0, Ly=16.0,
+                       Lz=16.0, topology=(1, 2, 1)), n3, "cuda", 0, True, 5))
+    print(f"run harris3d (1, 2, 1): 32^3 x 128 ppc on 2 ranks of one card, "
+          f"{n3} steps; staging {res[0]['build_s']:.1f} s, initialize() "
+          f"{res[0]['initialize_s']:.1f} s")
+    print_ranks(res, "harris3d", card)
+    checked(res, "harris3d (1, 2, 1)", n3, FP3.KERNEL)
+    if res[0]["path"] != "push3d" or res[0]["drift"] >= 1e-3:
+        fail(f"harris3d (1, 2, 1): path {res[0]['path']}, drift "
+             f"{res[0]['drift']}")
+    add(res, kernels(res, FP3.KERNEL, "harris3d"))
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 26: sc08 at the demo's grid on its (1, 1, 4) ---
+    t_phase = time.perf_counter()
+    n8 = SHARDED_STEPS[2]
+    res = M.launch(SC.run_rank, 4, "cuda", args=(
+        "sc08", dict(nx=150, ny=25, nz=100, nppc=1, topology=(1, 1, 4)), n8,
+        "cuda", 0, False, 5))
+    print(f"run sc08 (1, 1, 4): 150 x 25 x 100 x 1 ppc on 4 ranks of one "
+          f"card, {n8} steps; staging {res[0]['build_s']:.1f} s, "
+          f"initialize() {res[0]['initialize_s']:.1f} s")
+    print_ranks(res, "sc08", card)
+    checked(res, "sc08 (1, 1, 4)", n8, FP3.KERNEL)
+    print(f"  sc08: drift {res[0]['drift']:.3e} vs one domain (phase 23) "
+          f"{sc08_drift:.3e}")
+    if res[0]["drift"] > 2 * sc08_drift:
+        fail(f"sc08 (1, 1, 4): drift {res[0]['drift']} more than twice the "
+             f"one-domain {sc08_drift}")
+    add(res, {})
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 27: the irregular join, the decomposed reflux, a restart ---
+    t_phase = time.perf_counter()
+    kept = sum(M.launch(M.irregular_join_case, 4, "cuda"))
+    print(f"run irregular join (4 ranks, two spliced 2-rank rings): {kept} "
+          "of 64 lanes kept")
+    if kept != 64:
+        fail(f"irregular join kept {kept} of 64 lanes")
+    kept = sum(M.launch(M.reflux_case, 2, "cuda", args=("cuda", 20)))
+    print(f"run decomposed reflux ((1, 2, 1), 20 steps): {kept} of 128 "
+          "lanes kept")
+    if kept != 128:
+        fail(f"decomposed reflux kept {kept} of 128 lanes")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        base = os.path.join(d, "ck")
+        n1, n2 = SHARDED_RESTART
+        res = M.launch(SC.restart_rank, 2, "cuda", args=(
+            base, dict(topology=(1, 2, 1)), n1, n2))
+        e_run, e_rst = res[0]["e_run"], res[0]["e_restored"]
+        e_map = SC.remap_run(f"{base}.{n1}", dict(topology=(1, 1, 1)), n2)
+    for what, e in (("restored on (1, 2, 1)", e_rst),
+                    ("remapped onto (1, 1, 1)", e_map)):
+        rel = float(np.abs(e - e_run).max() / e_run.sum())
+        print(f"run harris 2-D (1, 2, 1) restart, checkpoint at step {n1}, "
+              f"{what}: step-{n1 + n2} energies differ from the "
+              f"uninterrupted run's by {rel:.3e} of the total (the one-domain"
+              f" CPU restart is exact; on the card the float atomics' "
+              f"summation order differs run to run; limit {RESTART_RTOL})")
+        if not rel <= RESTART_RTOL:
+            fail(f"decomposed restart {what}: energies differ by {rel}")
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
+    args = sys.argv[1:]
+    if args not in ([], ["--decomposed-only"]):
+        print(f"chip_smoke: unknown arguments {args}; usage: chip_smoke.py "
+              "[--decomposed-only]", file=sys.stderr)
+        return 2
+    decomposed_only = bool(args)
     import torch
 
     # --- phase 1: device ---
@@ -2005,6 +2216,23 @@ def main():
     if min(min(p) for p in per_sm) < 1:
         fail("a push kernel instance does not fit on an SM")
     results = {}
+
+    def sharded(sc08_drift):
+        # --- phases 24-27: decomposed runs, one process per rank ---
+        sharded_phases(torch, counters, card, results, sc08_drift)
+
+    if decomposed_only:
+        from vpic_tpu_torch.scripts import deck_checks as DC
+        for k in ("fused_push2d_walls", "fused_push3d_walls", MP.KERNEL):
+            results[k] = dict(launches=0, max_abs_err=0.0)
+        r = DC.sc08_demo("cuda", n_steps=SHARDED_STEPS[2])
+        print(f"run sc08 demo, one domain: drift {r['drift']:.3e}")
+        sharded(r["drift"])
+        print(json.dumps({k: {"launches": v["launches"],
+                              "max_abs_err": v["max_abs_err"]}
+                          for k, v in results.items()}))
+        print("partial run (phases 1-2 and 24-27): ok")
+        return 0
 
     # --- phase 3: 2-D kernel against its plain version ---
     sim = harris.build(harris.HarrisParams())
@@ -2282,7 +2510,8 @@ def main():
     stochastic_phases(torch, counters, card, results)
 
     # --- phases 22-23: the nine sample decks, sc08 at the demo size ---
-    deck_phases(torch, counters, card, results)
+    sc08_drift = deck_phases(torch, counters, card, results)
+    sharded(sc08_drift)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -103,8 +103,13 @@ def test_quota_checkpoints_and_stops(tmp_path):
 
 
 def test_remap_and_unknown_deck(tmp_path):
-    with pytest.raises(NotImplementedError, match="decomposition"):
-        CLI.main(["weibel", "--device", "cpu", "--restore", "x", "--remap"])
+    """--remap needs --restore and a checkpoint to read (remapping itself:
+    tests/test_torch_sharded_io.py); an unknown deck is refused."""
+    with pytest.raises(SystemExit):
+        CLI.main(["weibel", "--device", "cpu", "--remap"])
+    with pytest.raises(FileNotFoundError):
+        CLI.main(["weibel", "--device", "cpu", "--restore",
+                  str(tmp_path / "x"), "--remap"])
     with pytest.raises(SystemExit):
         CLI.main(["no_such_deck", "--device", "cpu"])
 

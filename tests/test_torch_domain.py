@@ -70,10 +70,12 @@ def test_self_join_makes_the_axis_periodic(axis):
 
 
 def test_join_between_domains_needs_decomposition():
+    """A join between two domains needs a topology with both ranks in it
+    (vpic_tpu's check; joins between ranks: tests/test_torch_join_ranks.py)."""
     st = _sized(vt)
-    with pytest.raises(NotImplementedError, match="decomposition"):
+    with pytest.raises(ValueError, match="n_shards"):
         st.join_domain(vt.BOUNDARY(0, -1, 0), 1, 0)
-    with pytest.raises(NotImplementedError, match="decomposition"):
+    with pytest.raises(ValueError, match="n_shards"):
         st.join_domain(vt.BOUNDARY(1, 0, 0), 0, 2)
     assert st.grid == _sized(vt).grid
 

@@ -72,9 +72,9 @@ def test_components_equal_jax(case, kind):
 def test_sharded_components_raise():
     sim = vt.Simulation(device="cpu")
     sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (8, 4, 4), (2, 1, 1))
-    with pytest.raises(NotImplementedError, match="decomposition"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         ET.surface_components(sim.grid, sphere)
-    with pytest.raises(NotImplementedError, match="decomposition"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         ET.child_langmuir(0, None, (np.zeros(1), np.zeros(1), np.ones(1)))
 
 

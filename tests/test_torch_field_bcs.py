@@ -63,8 +63,11 @@ def test_remote_and_decomposed_raise():
     g = GT.partition_periodic_box(0, 0, 0, 1, 1, 1, 4, 4, 4).with_bc(
         0, fbc=GT.REMOTE)
     f = ST.FieldState.zeros(g, "cpu")
-    with pytest.raises(NotImplementedError):
+    # a remote face with no rank to take its plane from
+    with pytest.raises(ValueError, match="undecomposed"):
         FT.ghost_norm_e(f, g)
+    # a decomposed grid runs one process per rank (tests/
+    # test_torch_sharded_fields.py); without a mesh it is refused
     sharded = dataclasses.replace(g, topology=(2, 1, 1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="one process per rank"):
         FT.synchronize_jf(f, sharded)

@@ -19,6 +19,7 @@ from vpic_tpu.models import shapes as shapes_jax
 from vpic_tpu_torch.deck import MAT_ID_ORDER
 from vpic_tpu_torch.models import shapes as shapes_torch
 from vpic_tpu_torch.ops import field_fuse as FF
+from vpic_tpu_torch.parallel import mesh as M
 
 from torch_parity import np_
 
@@ -90,9 +91,15 @@ def test_lookup_material_and_decomposed_grid():
     sim.define_timestep(0.04)
     sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (4, 4, 4), (2, 1, 1))
     sim.define_material("vacuum", 1.0)
+    metal = sim.define_material("metal", sigma=1.0)
     sim.define_field_array()
-    with pytest.raises(NotImplementedError):
+    # a decomposed grid paints this rank's brick: it needs the rank
+    with pytest.raises(RuntimeError, match="one process per rank"):
         sim.set_region_material(vt.everywhere, "vacuum")
+    with M.use(M.Mesh(1, 2, "cpu", "local")):
+        sim.set_region_material(lambda x, y, z: x > 0.5, metal)
+    # rank 1 holds x in [0.5, 1]: its interior is all metal
+    assert (sim._mat_ids["cmat"][1:-1, 1:-1, 1:-1] == metal.id).all()
 
 
 def test_shapes_fields_after_10_steps_match():

@@ -19,6 +19,7 @@ import vpic_tpu_torch.ops.fused_push as FP
 import vpic_tpu_torch.ops.interp as IT
 import vpic_tpu_torch.ops.push as PT
 import vpic_tpu_torch.state as ST
+from vpic_tpu_torch.parallel import mesh as M
 
 from torch_parity import build_pair, np_, to_torch
 
@@ -184,7 +185,14 @@ def test_supports_refuses(face_bc):
     elif face_bc == "3d":
         g = GT.partition_periodic_box(0, 0, 0, 1, 1, 1, 8, 8, 4)
     else:
-        g = GT.Grid(**{**g.__dict__, "topology": (2, 1, 1)})
+        # a decomposed grid is no refusal any more: its remote faces are
+        # wall faces of the rank, which the WALLS instance parks lanes at
+        g = GT.Grid(**{**g.__dict__, "topology": (2, 1, 1),
+                       "particle_bc": (GT.P_REMOTE, 0, 0, GT.P_REMOTE, 0,
+                                       0)})
+        with M.use(M.Mesh(1, 2, "cpu", "local")):
+            assert FP.supports(g) and PT.has_walls(g)
+        return
     with pytest.raises(NotImplementedError):
         FP.supports(g)
 
@@ -217,8 +225,10 @@ def test_advance_p_refuses_unported_faces(harris):
     remote = st.grid.with_bc(1, pbc=GT.P_REMOTE).with_bc(4, pbc=GT.P_REMOTE)
     with pytest.raises(NotImplementedError, match="remote"):
         PT.advance_p(s_t.species[0], ft, remote, 1.0, 1.0, acc)
+    # a decomposed grid needs this process's rank (tests/
+    # test_torch_sharded_push.py runs the push under a mesh)
     sharded = GT.Grid(**{**st.grid.__dict__, "topology": (1, 2, 1)})
-    with pytest.raises(NotImplementedError, match="decomposed"):
+    with pytest.raises(RuntimeError, match="one process per rank"):
         PT.advance_p(s_t.species[0], ft, sharded, 1.0, 1.0, acc)
 
 

@@ -35,8 +35,16 @@ def test_grid_copy_matches():
 
 
 def test_flat_rank_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        grid_torch.flat_rank(grid_torch.Grid(nx=4, ny=4, nz=1))
+    """flat_rank is this process's rank: 0 on one domain; a decomposed
+    grid needs a mesh (tests/test_torch_mesh.py holds its order to
+    vpic_tpu's)."""
+    from vpic_tpu_torch.parallel import mesh as M
+    assert grid_torch.flat_rank(grid_torch.Grid(nx=4, ny=4, nz=1)) == 0
+    g = grid_torch.Grid(nx=4, ny=4, nz=1, topology=(1, 2, 1))
+    with pytest.raises(RuntimeError, match="one process per rank"):
+        grid_torch.flat_rank(g)
+    with M.use(M.Mesh(1, 2, "cpu", "local")):
+        assert grid_torch.flat_rank(g) == 1
 
 
 # the 2-D deck, and a 3-D harris at the 3-D path's widths cut to 16^3

@@ -248,3 +248,17 @@ def run_deck_pair(sj, st, n_steps, path=None):
         assert int(np.asarray(x.live).sum()) == int(np_(y.live).sum()) \
             == int(y.np)
     return a, b, adv, step
+
+
+def launch_cpu(fn, world, tmp_path, *args):
+    """``fn(*args)`` on ``world`` Gloo ranks of the CPU (one spawned process
+    each, the FileStore under ``tmp_path``); the ranks' results."""
+    from vpic_tpu_torch.parallel import mesh as M
+    return M.launch(fn, world, "cpu", args=args, tmpdir=str(tmp_path))
+
+
+def jax_sharded(fn, g, *args):
+    """``fn`` (shard-local, on vpic_tpu state pieces) under shard_map over
+    ``g``'s topology on the virtual CPU devices, jitted."""
+    from vpic_tpu.parallel.mesh import make_mesh, shard_fn
+    return jax.jit(shard_fn(fn, g, make_mesh(g)))(*args)

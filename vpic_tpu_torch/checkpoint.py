@@ -14,10 +14,18 @@ int32.  What only the port keeps -- the Simulation's ``torch.Generator``
 state and the unfinished-streak count -- goes under ``torch::`` keys,
 which ``vpic_tpu`` does not read.
 
+On a decomposed grid every rank calls ``checkpt``: each array is gathered
+to rank 0, which writes one file whose arrays carry the leading topology
+dims ``(px, py, pz)`` -- the JAX package's sharded layout (its step,
+key and diag entries included), so either package restores the other's
+decomposed checkpoints -- and ``restore`` has rank 0 read the file and
+scatter each rank its brick.  ``remap`` (restart_remap, vpic_tpu/
+checkpoint.py:114-300) rebuilds a checkpoint written under any cartesian
+topology for the deck's: fields are stitched into the global mesh and
+split again, lanes re-binned by their global cell.
+
 ``modify`` implements --modify (misc.cc:136+): ASCII "field value" lines
-overriding num_step and the dump/clean intervals on restore.  ``remap``
-(a checkpoint onto another decomposition) waits for the decomposition
-port.
+overriding num_step and the dump/clean intervals on restore.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from .grid import PERIODIC
 from .interop import HOST_DIAG, _SPECIES_DTYPES
+from .parallel.mesh import mesh_of
 from .state import (FIELD_NAMES, SPECIES_NAMES, FieldState, SimState,
                     SpeciesState)
 
@@ -74,6 +83,13 @@ def checkpt(state: SimState, fbase: str, tag=None, sim=None) -> str:
     gen = getattr(sim, "_generator", None)
     if gen is not None:
         arrays[f"{PORT}generator"] = gen.get_state().numpy()
+    m = mesh_of(sim.grid) if sim is not None else None
+    if m is not None:
+        arrays = {k: _gather(m, sim.grid, v) for k, v in arrays.items()}
+        if m.rank != 0:
+            m.barrier()
+            return fname
+    if gen is not None:
         arrays[f"{PORT}generator_device"] = np.array(gen.device.type)
     np.savez_compressed(fname + ".npz", **arrays)
 
@@ -101,7 +117,45 @@ def checkpt(state: SimState, fbase: str, tag=None, sim=None) -> str:
         )
         with open(fname + ".json", "w") as fh:
             json.dump(cfg, fh, indent=1)
+    if m is not None:
+        m.barrier()
     return fname
+
+
+def _gather(m, g, a: np.ndarray) -> np.ndarray:
+    """Every rank's ``a`` stacked under the leading topology dims, on rank
+    0 (None elsewhere); it travels as bytes (Gloo moves no bool or uint32
+    tensors)."""
+    a = np.asarray(a, order="C")
+    parts = m.gather_to_root(torch.from_numpy(a.reshape(-1).view(np.uint8)))
+    if parts is None:
+        return None
+    return np.stack([p.numpy().view(a.dtype).reshape(a.shape)
+                     for p in parts]).reshape(tuple(g.topology) + a.shape)
+
+
+def _scatter(m, g, data):
+    """Rank 0's decomposed checkpoint arrays (leading topology dims), each
+    rank's brick of them: the key list and per-rank shapes go first."""
+    n = g.n_shards
+    meta = None
+    if m.rank == 0:
+        meta = [(k, v.shape[3:], v.dtype.str) for k, v in data.items()
+                if v.dtype.kind != "U" and v.shape[:3] == tuple(g.topology)]
+    meta = m.broadcast_object(meta)
+    out = {}
+    for k, shape, dt in meta:
+        dt = np.dtype(dt)
+        like = torch.zeros(int(np.prod(shape, dtype=np.int64)) * dt.itemsize,
+                           dtype=torch.uint8)
+        parts = None
+        if m.rank == 0:
+            flat = np.ascontiguousarray(data[k]).reshape((n, -1))
+            parts = [torch.from_numpy(flat[r].view(np.uint8))
+                     for r in range(n)]
+        got = m.scatter_from_root(parts, like).cpu().numpy()
+        out[k] = got.view(dt).reshape(shape)
+    return out
 
 
 def canonical_voxels(i: np.ndarray, live: np.ndarray, n, periodic):
@@ -162,16 +216,28 @@ def restore(fbase_tag: str, sim=None, device=None) -> SimState:
     lanes' voxels are made canonical (``canonical_voxels``): a JAX
     fused-path checkpoint holds ghost and unwrapped-y encodings; if that
     moved a lane of a residency state, the first step rebuckets."""
-    data = np.load(fbase_tag + ".npz")
     cfg_path = fbase_tag + ".json"
     cfg = None
-    if os.path.exists(cfg_path):
-        with open(cfg_path) as fh:
-            cfg = json.load(fh)
+    m = mesh_of(sim.grid) if sim is not None else None
+    if m is None or m.rank == 0:
+        data = dict(np.load(fbase_tag + ".npz"))
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as fh:
+                cfg = json.load(fh)
+    if m is not None:
+        cfg = m.broadcast_object(cfg)
+    if sim is not None and cfg is not None:
+        _check_config(cfg, sim.grid)
+    if m is not None:
+        data = _scatter(m, sim.grid, data if m.rank == 0 else None)
+    return _state(data, cfg, sim, device)
+
+
+def _state(data: dict, cfg, sim=None, device=None) -> SimState:
+    """The SimState of one rank's checkpoint arrays (see restore)."""
     if sim is not None:
         dev = sim.device
         if cfg is not None:
-            _check_config(cfg, sim.grid)
             sim.num_step = cfg["num_step"]
             sim.user_global = cfg.get("user_global", {})
     else:
@@ -204,9 +270,9 @@ def restore(fbase_tag: str, sim=None, device=None) -> SimState:
         species.append(SpeciesState(**{n: t(v) for n, v in cols.items()}))
         k += 1
 
-    saved = {n[len("diag::"):]: data[n] for n in data.files
+    saved = {n[len("diag::"):]: data[n] for n in data
              if n.startswith("diag::")}
-    saved.update({n[len(PORT + "diag::"):]: data[n] for n in data.files
+    saved.update({n[len(PORT + "diag::"):]: data[n] for n in data
                   if n.startswith(PORT + "diag::")})
     diag = sim._initial_diag() if sim is not None else {}
     for n, v in saved.items():
@@ -223,15 +289,166 @@ def restore(fbase_tag: str, sim=None, device=None) -> SimState:
     if sim is not None:
         gen = torch.Generator(device=sim.device)
         key = f"{PORT}generator"
-        if key in data.files and str(data[f"{PORT}generator_device"]) \
-                == sim.device.type:
+        saved_dev = data.get(f"{PORT}generator_device", sim.device.type)
+        if key in data and str(saved_dev) == sim.device.type:
             gen.set_state(torch.from_numpy(np.array(data[key])))
         else:
-            gen.manual_seed(sim.seed)
+            gen.manual_seed(sim._generator_seed())
         sim._generator = gen
     return SimState(fields=fields, species=tuple(species),
                     step=int(np.asarray(data["step"]).max()), diag=diag,
                     rng=np.array(data["rng"], np.uint32))
+
+
+def remap(fbase_tag: str, sim) -> SimState:
+    """restart_remap (vpic_tpu/checkpoint.py:114-300): restore
+    ``{fbase}.{tag}``, written under any cartesian topology, onto
+    ``sim``'s.  The global grid must match; the capacities are the new
+    deck's.  Fields are stitched into the ghost-extended global mesh (the
+    owners' interiors win) and split again; live lanes are re-binned by
+    their global cell; the key is rank 0's; diag tallies keep their global
+    sums on rank 0 (ring buffers and home maps start anew); the
+    generators are reseeded.  On a decomposed ``sim`` every rank calls it:
+    rank 0 reads and re-splits, then scatters each rank its brick."""
+    g = sim.grid
+    m = mesh_of(g)
+    data = None
+    if m is None or m.rank == 0:
+        data = _remap_arrays(dict(np.load(fbase_tag + ".npz")),
+                             json.load(open(fbase_tag + ".json")), sim)
+    if m is not None:
+        data = _scatter(m, g, data)
+    return _state(data, None, sim)
+
+
+def _remap_arrays(data: dict, cfg: dict, sim) -> dict:
+    """A checkpoint's arrays in the layout of a checkpoint of ``sim``'s
+    topology (leading (px, py, pz) dims when it is decomposed)."""
+    gg = cfg["grid"]
+    told = tuple(gg["topology"])
+    g = sim.grid
+    tnew = tuple(g.topology)
+    if g.face_partners is not None or gg.get("face_partners") is not None:
+        raise NotImplementedError(
+            "remap across topologies is cartesian-only; restore joined "
+            "(face_partners) decks onto the same topology with restore()")
+    nxo, nyo, nzo = gg["nx"], gg["ny"], gg["nz"]
+    if (nxo * told[0], nyo * told[1], nzo * told[2]) != (g.gnx, g.gny,
+                                                         g.gnz):
+        raise ValueError("remap: global grid mismatch")
+    sh_old, sh_new = told != (1, 1, 1), g.sharded
+    NXo, NYo = nxo + 2, nyo + 2
+    out = {}
+
+    def stitch(A):
+        """The ghost-extended global mesh: each global node from its one
+        owner (interior indices 1..n of a brick, plus its ghost or
+        boundary plane where the brick is first or last on the axis).
+        vpic_tpu's remap writes whole bricks and then every owner's
+        1..n interior, which leaves a brick's neighbour's ghost in a
+        boundary plane of a third axis (plane n + 1 of an axis with one
+        brick); this does not."""
+        if not sh_old:
+            return np.asarray(A)
+        G = np.zeros((g.gnz + 2, g.gny + 2, g.gnx + 2), A.dtype)
+        px, py, pz = told
+
+        def own(s, n_s, n):
+            lo = 0 if s == 0 else 1
+            hi = n + 2 if s == n_s - 1 else n + 1
+            return slice(s * n + lo, s * n + hi), slice(lo, hi)
+
+        for sx in range(px):
+            for sy in range(py):
+                for sz in range(pz):
+                    (gz, lz), (gy, ly), (gx, lx) = (
+                        own(sz, pz, nzo), own(sy, py, nyo), own(sx, px, nxo))
+                    G[gz, gy, gx] = A[sx, sy, sz][lz, ly, lx]
+        return G
+
+    def split(G):
+        if not sh_new:
+            return G
+        res = np.zeros(tnew + g.shape, G.dtype)
+        for sx in range(tnew[0]):
+            for sy in range(tnew[1]):
+                for sz in range(tnew[2]):
+                    res[sx, sy, sz] = G[sz * g.nz:sz * g.nz + g.NZ,
+                                        sy * g.ny:sy * g.ny + g.NY,
+                                        sx * g.nx:sx * g.nx + g.NX]
+        return res
+
+    for n in FIELD_NAMES:
+        out[f"f.{n}"] = split(stitch(data[f"f.{n}"]))
+
+    k = 0
+    while f"sp{k}.dx" in data:
+        cols = {n: np.asarray(data[f"sp{k}.{n}"]) for n in SPECIES_NAMES}
+        live = cols["live"].reshape(-1).astype(bool)
+        flat = {n: cols[n].reshape(-1)[live] for n in SPECIES_NAMES
+                if n != "np"}
+        if sh_old:
+            Nl = cols["dx"].shape[-1]
+            sidx = np.indices(told)
+            lane_shard = np.broadcast_to(
+                sidx[..., None], (3,) + told + (Nl,)).reshape(3, -1)[:, live]
+        else:
+            lane_shard = np.zeros((3, int(live.sum())), np.int64)
+        i = flat["i"].astype(np.int64)
+        zi, r = np.divmod(i, NXo * NYo)
+        yi, xi = np.divmod(r, NXo)
+        if nzo == 1:        # the JAX fused path's unwrapped-y images
+            yi = (yi + (zi - 1) * NYo - 1) % nyo + 1
+            zi = np.ones_like(zi)
+        gxi = (xi - 1) % nxo + 1 + lane_shard[0] * nxo
+        gyi = (yi - 1) % nyo + 1 + lane_shard[1] * nyo
+        gzi = (zi - 1) % nzo + 1 + lane_shard[2] * nzo
+        ns = [np.clip((c - 1) // n, 0, t - 1) for c, n, t in
+              zip((gxi, gyi, gzi), (g.nx, g.ny, g.nz), tnew)]
+        new_i = ((gxi - ns[0] * g.nx) + g.NX * ((gyi - ns[1] * g.ny)
+                 + g.NY * (gzi - ns[2] * g.nz))).astype(np.int32)
+        cap = sim.species[k].params.capacity
+        shp = (tnew + (cap,)) if sh_new else (cap,)
+        res = {n: np.zeros(shp, cols[n].dtype) for n in SPECIES_NAMES
+               if n != "np"}
+        key = (ns[0] * tnew[1] + ns[1]) * tnew[2] + ns[2]
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        counts = np.bincount(ks, minlength=int(np.prod(tnew)))
+        if counts.max(initial=0) > cap:
+            raise RuntimeError(
+                f"remap: species {k}: a rank holds {int(counts.max())} > "
+                f"capacity {cap}; raise max_local_np in the new deck")
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slot = np.arange(ks.size) - start[ks]
+        tgt = ((ns[0][order], ns[1][order], ns[2][order], slot) if sh_new
+               else (slot,))
+        for n in res:
+            res[n][tgt] = (new_i[order] if n == "i" else True if n == "live"
+                           else flat[n][order])
+        res["np"] = (counts.reshape(tnew).astype(np.int32) if sh_new
+                     else np.int32(counts.sum()))
+        for n, v in res.items():
+            out[f"sp{k}.{n}"] = v
+        k += 1
+
+    lead = tnew if sh_new else ()
+    out["step"] = np.full(lead, int(np.asarray(data["step"]).max()),
+                          np.int32)
+    out["rng"] = np.broadcast_to(
+        np.asarray(data["rng"], np.uint32).reshape(-1, 2)[0],
+        lead + (2,)).copy()
+    for n, v in data.items():
+        if not n.startswith("diag::") or n.startswith("diag::_chart_home"):
+            continue
+        v = np.asarray(v)
+        per = v.reshape((-1,) + v.shape[3:]) if sh_old else v[None]
+        tot = per.sum(axis=0) if per.ndim <= 1 or per.shape[1:] == () \
+            else np.zeros(per.shape[1:], v.dtype)
+        res = np.zeros(lead + tot.shape, v.dtype)
+        res[(0,) * len(lead)] = tot
+        out[n] = res
+    return out
 
 
 def modify(sim, path: str):

@@ -25,7 +25,11 @@
 //      absorbing face ends the lane's walk on the face and kills it, and its
 //      charge goes to rhob (accumulate_rhob, push.py:274-296, with float
 //      atomics); a custom face ends the walk on the face with pend =
-//      CUSTOM_BASE + face and the remaining displacement, for boundary_p.
+//      CUSTOM_BASE + face and the remaining displacement, for boundary_p;
+//      on a decomposed grid a face that a neighbouring rank owns (P_REMOTE
+//      in the rank's table p.bc) ends it on the face with pend = face and
+//      the remaining displacement, for the migration rounds (push.py:
+//      505-553: interior shard faces park with the bare face index).
 //      The TPU kernels could not stop one lane of a block mid-walk, so they
 //      froze every lane that might reach such a face (a p + 2 dp pre-flag
 //      with a margin, and a dilated per-cell mark smuggled into the
@@ -82,6 +86,7 @@ constexpr int SPECIES_PTRS = 13;
 
 // Particle BC codes (vpic_tpu_torch/grid.py) and pend codes (ops/push.py).
 constexpr int P_PERIODIC = 0;
+constexpr int P_REMOTE = 1;
 constexpr int REFLECT_PARTICLES = -1;
 constexpr int ABSORB_PARTICLES = -2;
 constexpr int DONE = -1;
@@ -290,12 +295,13 @@ __device__ __forceinline__ void cross(float& pos, float& disp, float& u,
 // What a crossing did to the lane's walk (WALLS).
 enum Crossed { WALK_ON = 0, ABSORBED = 1, PARKED = 2 };
 
-// One face crossing with every one-device rule (push.py:443-601): the
-// particle is put on the face; the exit face's per-voxel code (vbc, read at
-// the voxel `cur` being left) comes first, then the domain: a move into the
-// neighbour cell, a periodic wrap, a reflecting bounce, an absorbing face
-// (ABSORBED: the lane stays on the face) or a custom face (PARKED, with
-// pend = CUSTOM_BASE + face).
+// One face crossing with every rule of the rank's faces (push.py:443-601):
+// the particle is put on the face; the exit face's per-voxel code (vbc,
+// read at the voxel `cur` being left) comes first, then the domain: a move
+// into the neighbour cell, a periodic wrap, a reflecting bounce, an
+// absorbing face (ABSORBED: the lane stays on the face), a face another
+// rank owns (PARKED, with pend = face, for migration) or a custom face
+// (PARKED, with pend = CUSTOM_BASE + face).
 __device__ __forceinline__ Crossed cross_walls(const PushParams& p, int axis,
                                                float& pos, float& disp,
                                                float& u, int& coord,
@@ -334,7 +340,7 @@ __device__ __forceinline__ Crossed cross_walls(const PushParams& p, int axis,
     return WALK_ON;
   }
   if (bc == ABSORB_PARTICLES) return ABSORBED;
-  pend = CUSTOM_BASE + face;
+  pend = bc == P_REMOTE ? face : CUSTOM_BASE + face;
   return PARKED;
 }
 

@@ -1,6 +1,6 @@
 """The deck layer: VPIC's input-deck vocabulary as a Python builder
-(counterpart of ``vpic_tpu/deck.py``, for one device: the 2-D and 3-D
-kernel paths, the 3-D residency path and the general path).
+(counterpart of ``vpic_tpu/deck.py``: the 2-D and 3-D kernel paths, the
+3-D residency path and the general path, on one domain or decomposed).
 
 A deck is ordinary Python driving a ``Simulation`` builder with the
 reference's vocabulary (define_units, define_timestep,
@@ -26,6 +26,16 @@ step never reads the device: the sort and cleaner cadences are decisions on
 the host-int ``state.step``.  The 3-D residency step reads one bool per step
 (rebucket or merge, the JAX package's ``lax.cond``), counted in
 ``Simulation.host_syncs``; a graph-safe step must remove it.
+
+Decomposed grids (a topology other than (1, 1, 1)) run one process per
+rank (``parallel/mesh.py``): every rank runs the whole deck, stages the
+same global load and keeps its own brick's lanes, fields, materials and
+region tables; the step is the JAX package's shard-local step, with the
+halo exchanges of ``ops/fields`` and the migration rounds of
+``boundary.boundary_p``, and ``energies`` sums over the ranks.  Residency
+is off there (lanes move between ranks every step), so a 3-D deck
+brick-sorts every step.  Emitters and collision ops on decomposed grids
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,9 +50,10 @@ import torch
 
 from . import boundary as B
 from .grid import (ABSORB_PARTICLES, FIRST_CUSTOM_PBC, P_PERIODIC,
-                   PERIODIC, REFLECT_PARTICLES, Grid,
-                   partition_absorbing_box, partition_metal_box,
-                   partition_periodic_box)
+                   PERIODIC, REFLECT_PARTICLES, Grid, cartesian_partners,
+                   flat_rank, local_corner, partition_absorbing_box,
+                   partition_metal_box, partition_periodic_box,
+                   rank_coords)
 from .ops import field_fuse as FF
 from .ops import fields as F
 from .ops import fused_push as FP
@@ -51,6 +62,7 @@ from .ops import interp as I
 from .ops import move_p as MP
 from .ops import push as P
 from .ops import residency as RES
+from .parallel.mesh import mesh_of
 from .state import (FieldState, MaterialCoeffs, SimState, SpeciesParams,
                     SpeciesState)
 
@@ -126,8 +138,13 @@ class Simulation:
         # pallas_sort_interval; the per-species sort_interval drives only
         # the JAX package's general path)
         self.pallas_sort_interval = 8
-        # host reads of the device made by the step (the residency trigger)
+        # host reads of the device made by the step (the residency trigger,
+        # and on a decomposed grid the collectives' copies and counts)
         self.host_syncs = 0
+        self._mesh_syncs = 0
+        # migration rounds on a decomposed grid: lanes sent (host int) and
+        # lanes dropped (a device tensor; 0 unless a buffer overflowed)
+        self.migration = {"migrated": 0, "n_dropped": 0}
         self._field_ops: list = []
         # User hooks (deck sections): (FieldState, step) -> FieldState; they
         # may update the fields in place and return them.
@@ -161,7 +178,8 @@ class Simulation:
         # initialize(), on ``device``
         self._generator = None
         self._entropy = np.random.RandomState(seed)
-        # the pool every rank draws alike (sync_rng); one device: rank 0
+        # the pool every rank draws alike (sync_rng); every rank runs the
+        # deck with rank 0's pools, so all stage the same global load
         self._sync_entropy = np.random.RandomState(seed + 0x5EED)
         self._rank = 0
         # materials: the stagger-class id meshes (set at
@@ -258,20 +276,46 @@ class Simulation:
         return self.grid
 
     def join_domain(self, boundary: int, rank: int, src_rank: int = 0):
-        """join_domain (grid/ops.c:119 join_grid), its self-join: with
-        ``rank == src_rank`` the face's axis becomes periodic in both faces
-        (sample/cygnus:96-97's y periodicity of a 2-D deck).  A join
-        between two domains needs decomposition, which is not ported: it
-        raises."""
+        """join_domain (grid/ops.c:119 join_grid): connect a face to
+        another domain's opposite face.
+        - self-join (rank == src_rank): the face's axis becomes periodic in
+          both faces (sample/cygnus:96-97's y periodicity of a 2-D deck).
+        - rank != src_rank: an irregular domain graph (vpic_tpu/deck.py:
+          232-300).  The grid's per-face partner tables (seeded from the
+          cartesian topology the first time) record that src_rank's
+          ``boundary`` face connects to ``rank``'s opposite face; halo
+          exchange and migration then follow the tables.  Joins are
+          reciprocal: the opposite entry on ``rank`` is updated and any
+          stale link unspliced, so each face's map stays a permutation."""
         face = int(boundary)
-        if rank != src_rank:
-            raise NotImplementedError(
-                f"join_domain({face}, {rank}, {src_rank}): a join between "
-                "two domains needs domain decomposition, which is not "
-                "ported yet; only the self-join (rank == src_rank) is")
-        axis = face % 3
-        for fc in (axis, axis + 3):
-            self.grid = self.grid.with_bc(fc, fbc=PERIODIC, pbc=P_PERIODIC)
+        if rank == src_rank:
+            axis = face % 3
+            for fc in (axis, axis + 3):
+                self.grid = self.grid.with_bc(fc, fbc=PERIODIC,
+                                              pbc=P_PERIODIC)
+            return self.grid
+        g = self.grid
+        n = g.n_shards
+        if not (0 <= rank < n and 0 <= src_rank < n):
+            raise ValueError(
+                f"join_domain({face}, {rank}, {src_rank}): ranks must be "
+                f"< n_shards ({n}); partition with a topology covering "
+                "every domain first")
+        tabs = [list(t) for t in (g.face_partners or cartesian_partners(g))]
+        opp = (face + 3) % 6
+
+        def unlink(fc, r):
+            p = tabs[fc][r]
+            if p >= 0 and tabs[(fc + 3) % 6][p] == r:
+                tabs[(fc + 3) % 6][p] = -1
+            tabs[fc][r] = -1
+
+        unlink(face, src_rank)
+        unlink(opp, rank)
+        tabs[face][src_rank] = rank
+        tabs[opp][rank] = src_rank
+        self.grid = dataclasses.replace(
+            g, face_partners=tuple(tuple(t) for t in tabs))
         return self.grid
 
     def set_domain_field_bc(self, face: int, bc: int):
@@ -327,15 +371,9 @@ class Simulation:
                 raise ValueError("set_region_particle_bc: bc must be "
                                  "ABSORB/REFLECT or a handler")
             codes = [int(bc)] * 6
-        if g.sharded:
-            raise NotImplementedError("decomposed grids are not ported yet")
         if self._vbc is None:
             self._vbc = np.zeros((g.NZ, g.NY, g.NX, 6), np.int32)
-        xc = g.x0 + g.dx * (np.arange(g.NX) - 0.5)
-        yc = g.y0 + g.dy * (np.arange(g.NY) - 0.5)
-        zc = g.z0 + g.dz * (np.arange(g.NZ) - 0.5)
-        Z, Y, X = np.meshgrid(zc, yc, xc, indexing="ij")
-        inside = np.vectorize(region, otypes=[bool])(X, Y, Z)
+        inside = self._region_mask(region)
         vb = self._vbc
         for ax in range(3):
             a = 2 - ax                   # grid axis -> array axis
@@ -349,6 +387,18 @@ class Simulation:
             lo_of_upper = np.roll(face_hi, 1, axis=a)
             lo_of_upper[(slice(None),) * a + (0,)] = False
             vb[..., ax][lo_of_upper] = codes[ax]
+
+    def _region_mask(self, region):
+        """``region`` at the ghosted cell centres of this rank's brick, a
+        (NZ, NY, NX) bool array: on a decomposed grid each rank rasterizes
+        its own brick with its global offsets (vpic_tpu/deck.py:352-381)."""
+        g = self.grid
+        x0, y0, z0 = local_corner(g, flat_rank(g))
+        xc = x0 + g.dx * (np.arange(g.NX) - 0.5)
+        yc = y0 + g.dy * (np.arange(g.NY) - 0.5)
+        zc = z0 + g.dz * (np.arange(g.NZ) - 0.5)
+        Z, Y, X = np.meshgrid(zc, yc, xc, indexing="ij")
+        return np.vectorize(region, otypes=[bool])(X, Y, Z)
 
     def _local_vbc(self):
         """The (nv, 6) int32 per-voxel-face code table on the device, or
@@ -399,26 +449,19 @@ class Simulation:
         """set_region_material (deck/wrapper.h:211-253): the volume material
         at every stagger location fully inside the region, the surface
         material at locations partly inside, from ``region`` evaluated at
-        the ghosted cell centres (numpy, on the host).  Decomposed grids
-        raise."""
+        the ghosted cell centres of this rank's brick (numpy, on the
+        host)."""
         if isinstance(volume_mat, str):
             volume_mat = self.lookup_material(volume_mat)
         if isinstance(surface_mat, str):
             surface_mat = self.lookup_material(surface_mat)
         if surface_mat is None:
             surface_mat = volume_mat
-        g = self.grid
-        if g.sharded:
-            raise NotImplementedError("decomposed grids are not ported yet")
         if self._mat_ids is None:
             self._mat_ids = self._zero_mat_ids()
         self._multi_material = True
         self._mcoef = None
-        xc = g.x0 + g.dx * (np.arange(g.NX) - 0.5)
-        yc = g.y0 + g.dy * (np.arange(g.NY) - 0.5)
-        zc = g.z0 + g.dz * (np.arange(g.NZ) - 0.5)
-        Z, Y, X = np.meshgrid(zc, yc, xc, indexing="ij")
-        inside = np.vectorize(region, otypes=[bool])(X, Y, Z)
+        inside = self._region_mask(region)
 
         def sh(dz, dy, dx):
             """out[v] = inside[v - d], False beyond the array edge."""
@@ -555,13 +598,14 @@ class Simulation:
                                              bx=bx, by=by, bz=bz)))
 
     def _materialize_fields(self) -> dict:
-        """Evaluate the recorded region-field ops on the ghosted mesh;
-        returns 6 float32 numpy arrays (ex, ey, ez, cbx, cby, cbz)."""
+        """Evaluate the recorded region-field ops on this rank's ghosted
+        mesh; returns 6 float32 numpy arrays (ex, ey, ez, cbx, cby, cbz)."""
         g = self.grid
         c = g.cvac
-        xn = g.x0 + g.dx * (np.arange(g.NX) - 1.0)
-        yn = g.y0 + g.dy * (np.arange(g.NY) - 1.0)
-        zn = g.z0 + g.dz * (np.arange(g.NZ) - 1.0)
+        x0, y0, z0 = local_corner(g, flat_rank(g))
+        xn = x0 + g.dx * (np.arange(g.NX) - 1.0)
+        yn = y0 + g.dy * (np.arange(g.NY) - 1.0)
+        zn = z0 + g.dz * (np.arange(g.NZ) - 1.0)
         xc, yc, zc = xn + 0.5 * g.dx, yn + 0.5 * g.dy, zn + 0.5 * g.dz
 
         out = {k: np.zeros(g.shape, np.float32)
@@ -593,22 +637,34 @@ class Simulation:
 
     def _pack_species(self):
         """Host-pack the staged particles into fixed-capacity arrays, in
-        injection order.  Returns (species_states, update_rhob_masks, ages)
-        on ``self.device``; a species' ages are None when none is staged
-        with an age."""
+        injection order; on a decomposed grid the lanes of this rank's
+        brick (global voxel -> local voxel, vpic_tpu/deck.py:696-775).
+        Returns (species_states, update_rhob_masks, ages) on
+        ``self.device``; a species' ages are None when none is staged with
+        an age."""
         g = self.grid
+        rank = flat_rank(g)
         out, urbs, ages = [], [], []
         for st in self.species:
             cap = st.params.capacity
             rows = (np.asarray(st.xs, np.float64) if st.xs
                     else np.zeros((0, 12)))
+            if g.sharded:
+                gijk = rows[:, 3:6].astype(np.int64) - 1
+                s3 = gijk // np.array([g.nx, g.ny, g.nz])
+                px, py, pz = g.topology
+                rows = rows[(s3[:, 0] * py + s3[:, 1]) * pz + s3[:, 2]
+                            == rank].copy()
+                rows[:, 3:6] -= np.array(rank_coords(g, rank)) * \
+                    np.array([g.nx, g.ny, g.nz])
             a = rows[:, :10]
             urb = rows[:, 11].astype(bool)
             n = len(a)
             if n > cap:
                 raise RuntimeError(
                     f"species {st.params.name}: {n} particles overflow "
-                    f"capacity {cap}")
+                    f"capacity {cap}" + (f" on rank {rank}" if g.sharded
+                                         else ""))
             vox = (a[:, 3].astype(np.int64)
                    + g.NX * (a[:, 4].astype(np.int64)
                              + g.NY * a[:, 5].astype(np.int64))
@@ -653,11 +709,10 @@ class Simulation:
         """Post-deck derived-state fixups (initialize.cc:5-64), in the JAX
         package's order: rhob, the aged lanes' partial push, B cleaning,
         curl B, rho, rhob from div E, E cleaning, then u back half a
-        step."""
+        step.  On a decomposed grid every rank makes the call (the field
+        fixups exchange halos) and gets its own brick's state."""
         self._check_device()
         g = self.grid
-        if g.sharded:
-            raise NotImplementedError("decomposed grids are not ported yet")
         self._path()
         m = self._material_coeffs()
         f = self._build_initial_fields()
@@ -686,7 +741,7 @@ class Simulation:
             P.uncenter_p(sp, fcoef, g, st.params.q, st.params.m)
             for st, sp in zip(self.species, species))
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(self.seed)
+        self._generator.manual_seed(self._generator_seed())
         # the JAX package's state key, drawn as its initialize() draws it
         # (jax.random.PRNGKey of a host draw, [0, seed] as uint32): the
         # port draws nothing from it, but carries it in SimState.rng so a
@@ -695,6 +750,13 @@ class Simulation:
         rng = np.array([0, self._entropy.randint(0, 2**31 - 1)], np.uint32)
         return SimState(fields=f, species=species, step=0,
                         diag=self._initial_diag(), rng=rng)
+
+    def _generator_seed(self) -> int:
+        """The handlers' generator seed: ``seed``, with the rank folded in
+        on a decomposed grid so the ranks draw apart (the JAX package's
+        per-shard key, vpic_tpu/parallel/mesh.py:181-207)."""
+        g = self.grid
+        return self.seed + (flat_rank(g) << 32 if g.sharded else 0)
 
     def _aged_push(self, species, ages, rhob):
         """Aged injection (misc.cc:88-99), as vpic_tpu/deck.py:832-870:
@@ -766,10 +828,12 @@ class Simulation:
     def _grows(self) -> bool:
         """True when something may put a live lane in a slot past the
         injection count: an emitter or either particle hook (the JAX
-        package's ``not no_growth``, vpic_tpu/deck.py:1102-1121)."""
+        package's ``not no_growth``, vpic_tpu/deck.py:1102-1121); on a
+        decomposed grid migration appends arrivals."""
         return bool(self.emitters) or \
             self.user_particle_injection is not None or \
-            self.user_particle_collisions is not None
+            self.user_particle_collisions is not None or \
+            (self.grid is not None and self.grid.sharded)
 
     def _live_bounds(self):
         """Per-species bound on the live slots: the injection count, unless
@@ -884,9 +948,13 @@ class Simulation:
         handlers = dict(self.pbc_handlers)
         vbc = self._local_vbc()
         walled = P.has_walls(g, vbc)
-        # lanes can be parked at a custom face: boundary_p runs
-        parks = bool(handlers) or any(bc <= FIRST_CUSTOM_PBC
-                                      for bc in g.particle_bc)
+        # lanes can be parked at a custom face or leave for another rank:
+        # boundary_p runs (on a decomposed grid with its migration rounds
+        # on every path, vpic_tpu/deck.py:1328-1336, 1433-1440)
+        parks = bool(handlers) or g.sharded or any(
+            bc <= FIRST_CUSTOM_PBC for bc in g.particle_bc)
+        kernel_rounds = self.num_comm_round if g.sharded else 0
+        mesh = mesh_of(g)
         collision_ops = tuple(self.collision_ops)
         u_collide = self.user_particle_collisions
         emitters = tuple(self.emitters)
@@ -952,12 +1020,15 @@ class Simulation:
             """The parked lanes' handlers (boundary_p), in place."""
             if not parks:
                 return species, acc
-            species, acc, _, _, hd = B.boundary_p(
+            species, acc, _, dropped, hd = B.boundary_p(
                 species, sp_params, walls.pends, walls.disps, acc,
                 walls.rhob, g, num_comm_round=rounds, max_streak=max_streak,
                 custom_handlers=handlers, generator=self._generator,
-                diag=diag)
+                diag=diag, vbc=vbc, stats=self.migration)
             diag.update(hd)
+            if g.sharded:
+                self.migration["n_dropped"] = \
+                    self.migration["n_dropped"] + dropped
             return species, acc
 
         def sort_general(species, step):
@@ -991,8 +1062,10 @@ class Simulation:
                 species, fcoef, acc, g, qms, max_streak=max_streak,
                 walls=walls)
             # the parked lanes' handlers run once, as after the JAX
-            # package's outlier replay (pallas_push.py:1010-1017)
-            species, acc = handle_parked(species, walls, acc, diag, 0)
+            # package's outlier replay (pallas_push.py:1010-1017); on a
+            # decomposed grid with the migration rounds
+            species, acc = handle_parked(species, walls, acc, diag,
+                                         kernel_rounds)
             species, acc = emit(species, f, fcoef, acc, rhob, step)
             return species, acc, unfinished
 
@@ -1014,7 +1087,8 @@ class Simulation:
                 species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                     species, fcoef, acc, g, qms, homes=homes,
                     max_streak=max_streak, walls=walls)
-                species, acc = handle_parked(species, walls, acc, diag, 0)
+                species, acc = handle_parked(species, walls, acc, diag,
+                                             kernel_rounds)
                 species, acc = emit(species, f, fcoef, acc, rhob, step)
                 return species, acc, unfinished
             # residency (vpic_tpu/deck.py:1195-1233, 1364-1419): the whole
@@ -1099,6 +1173,11 @@ class Simulation:
                 clean_b(f)
             if sy > 0 and step % sy == 0:
                 F.synchronize_tang_e_norm_b(f, g)
+            if mesh is not None:
+                # the collectives' device reads (gloo-staged copies, the
+                # migration counts) are the step's host syncs too
+                self.host_syncs += mesh.host_syncs - self._mesh_syncs
+                self._mesh_syncs = mesh.host_syncs
             return SimState(fields=f, species=tuple(species), step=step + 1,
                             diag=diag, rng=state.rng)
 
@@ -1141,7 +1220,8 @@ class Simulation:
         return plain, "plain: " + "; ".join(why)
 
     def make_step(self) -> Callable[[SimState], SimState]:
-        """The full step on one device (no decomposition to lift over)."""
+        """The full step.  Each rank's process runs it on its own brick
+        (the JAX package lifts the same shard-local step with shard_map)."""
         return self.make_advance()
 
     def run(self, state: SimState = None, num_step: int = None,
@@ -1157,7 +1237,10 @@ class Simulation:
         the wall clock passes ``quota_s`` seconds, which ends the run.
         The steps run one at a time, so every diagnostic and checkpoint
         step is landed on; all of them run between steps, and the loop
-        reads nothing from the device but at those steps."""
+        reads nothing from the device but at those steps.  On a decomposed
+        grid every rank runs the loop (the dumps and checkpoints are
+        collective), rank 0 prints and writes the energies, and the quota
+        is rank 0's clock, shared with the others every step."""
         import time
         from . import checkpoint as CK
         from . import dump as DU
@@ -1178,7 +1261,7 @@ class Simulation:
             if self.status_interval and k % self.status_interval == 0:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                if verbose:
+                if verbose and flat_rank(self.grid) == 0:
                     print(f"Completed step {k} of {n}")
                     prof.update_profile()
                 if energies_file:
@@ -1188,11 +1271,20 @@ class Simulation:
                     k % checkpt_interval == 0:
                 with prof.tic("checkpt"):
                     CK.checkpt(state, checkpt_base, sim=self)
-            if quota_s is not None and time.time() - t0 > quota_s:
+            if quota_s is not None and self._past(time.time() - t0 > quota_s):
                 if checkpt_base:
                     CK.checkpt(state, checkpt_base, tag="quota", sim=self)
                 break
         return state
+
+    def _past(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (every rank ends the run at the
+        same step)."""
+        m = mesh_of(self.grid)
+        if m is None:
+            return flag
+        f = torch.tensor([float(flag and m.rank == 0)])
+        return bool(m.all_max(f).item() > 0)
 
     # ---------------- diagnostics ----------------
 

@@ -1,5 +1,5 @@
 """Field diagnostics beyond energies (counterpart of
-``vpic_tpu/diagnostics.py``, one device): the Poynting flux
+``vpic_tpu/diagnostics.py``): the Poynting flux
 (src/vpic/diagnostics.cc:24-81) and the Gauss-law / div-B residuals the
 regression decks use.  Each returns a 0-d float32 tensor on the state's
 device and leaves the state as it was: the scratch meshes it fills
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .grid import Grid
+from .grid import Grid, flat_rank, rank_coords
 from .ops import fields as F
 from .ops import push as P
 from .state import FieldState
@@ -22,8 +22,10 @@ def poynting_flux(f: FieldState, g: Grid, e0: float = 1.0):
     [1, n) transverse range and normalized by the sample count.
     Degenerate transverse axes (ny==1 or nz==1, where the reference's
     (n-1)-point range is empty and its normalization divides by zero) fall
-    back to the single interior sample on that axis."""
-    F._check_local(g)
+    back to the single interior sample on that axis.  On a decomposed
+    grid only the ranks on the global low-x face (ix == 0, the reference's
+    RANK_TO_INDEX gate, diagnostics.cc:50-51) contribute, and the sum over
+    ranks is normalized by the global sample count (:75)."""
     ys = slice(2, g.ny + 1) if g.ny > 1 else slice(1, 2)
     zs = slice(2, g.nz + 1) if g.nz > 1 else slice(1, 2)
     ey = f.ey[zs, ys, 2]
@@ -32,9 +34,12 @@ def poynting_flux(f: FieldState, g: Grid, e0: float = 1.0):
     cby = 0.5 * (f.cby[zs, ys, 1] + f.cby[zs, ys, 2])
     s = ey * cbz - ez * cby
     local = torch.sum(s) / (g.cvac * g.cvac * e0 * e0)
+    if g.sharded and rank_coords(g, flat_rank(g))[0] != 0:
+        local = torch.zeros_like(local)
     ny_eff = (g.ny - 1) if g.ny > 1 else 1
     nz_eff = (g.nz - 1) if g.nz > 1 else 1
-    return local / (ny_eff * nz_eff)
+    return F.all_sum(local, g) / (ny_eff * nz_eff
+                                  * g.topology[1] * g.topology[2])
 
 
 def gauss_error(sim, state):
@@ -55,7 +60,7 @@ def gauss_error(sim, state):
     F.synchronize_rho(f, g)
     F.compute_div_e_err(f, g, m)
     num, den = F.compute_rms_div_e_err(f, g)
-    return g.eps0 * torch.sqrt(num / den)
+    return g.eps0 * torch.sqrt(F.all_sum(num, g) / (den * g.n_shards))
 
 
 def div_b_error(f: FieldState, g: Grid):
@@ -63,4 +68,4 @@ def div_b_error(f: FieldState, g: Grid):
     f = f.replace(div_b_err=f.div_b_err.clone())
     F.compute_div_b_err(f, g)
     num, den = F.compute_rms_div_b_err(f, g)
-    return g.eps0 * torch.sqrt(num / den)
+    return g.eps0 * torch.sqrt(F.all_sum(num, g) / (den * g.n_shards))

@@ -1,5 +1,5 @@
 """Diagnostic dumps (counterpart of ``vpic_tpu/dump.py``; src/vpic/dump.cc
-+ dumpmacros.h), one device.
++ dumpmacros.h).
 
 Text dumps (energies, materials, species) and V0-format binary dumps
 (fields, hydro, particles, grid) in the reference's layout
@@ -11,7 +11,12 @@ the JAX package's byte for byte, but for the floats computed here: hydro
 moments (summed in another order) and the centred momenta of the particle
 dump.  Each dump reads the state back from the device once, between
 steps; the binary blocks go through the native writer (``native/io``).
-Decomposed grids raise.
+On a decomposed grid every rank makes the call and writes its own file
+``{fbase}.{tag}.{rank}`` (the hydro moments are synchronized across ranks
+first), rank 0 writes the text files (energies, the strided dumps'
+``.global`` stitch metadata), and every rank gets every file name back
+once all are written (vpic_tpu/dump.py:86-346 writes the same files from
+its global arrays).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from .deck import MAT_ID_ORDER
-from .grid import Grid
+from .grid import Grid, flat_rank
 from .native import io as native_io
 from .ops import hydro as H
 from .ops import interp as I
@@ -45,9 +50,22 @@ def _host(t) -> np.ndarray:
         else np.asarray(t)
 
 
-def _local(g: Grid):
-    if g.sharded:
-        raise NotImplementedError("decomposed grids are not ported yet")
+def _rank(g: Grid) -> int:
+    return flat_rank(g)
+
+
+def _names(g: Grid, base: str):
+    """Every rank's file name, ``{base}.{rank}``."""
+    return [f"{base}.{r}" for r in range(g.n_shards)]
+
+
+def _written(g: Grid, names):
+    """Wait until every rank has written its file; returns ``names``."""
+    from .parallel.mesh import mesh_of
+    m = mesh_of(g)
+    if m is not None:
+        m.barrier()
+    return names
 
 
 def _header_v0(g: Grid, step: int, dump_type: int, sp_id: int = -1,
@@ -84,8 +102,11 @@ def energies_line(step: int, en) -> str:
 
 def dump_energies(sim, state, fname: str, append: bool = True):
     """dump_energies (dump.cc:37-77) text format: a header when not
-    appending, then one line of step and the energies() columns."""
+    appending, then one line of step and the energies() columns (every
+    rank sums the energies; rank 0 writes)."""
     en = _host(sim.energies(state))
+    if _rank(sim.grid) != 0:
+        return
     with open(fname, "a" if append else "w") as fh:
         if not append:
             names = " ".join(f'"{st.params.name}"' for st in sim.species)
@@ -120,7 +141,7 @@ def dump_fields(sim, state, fbase: str, ftag: Optional[int] = None):
     stagger-class id meshes (zeros for a deck without
     set_region_material).  Returns the file names."""
     g = sim.grid
-    _local(g)
+    rank = _rank(g)
     step = int(state.step)
     tag = step if ftag is None else ftag
     rec = np.zeros((g.nv,), dtype=[("f", "<f4", (16,)),
@@ -131,11 +152,11 @@ def dump_fields(sim, state, fbase: str, ftag: Optional[int] = None):
     if mat_ids is not None:
         for mi, mc in enumerate(MAT_ID_ORDER):
             rec["m"][:, mi] = mat_ids[mc].reshape(-1)
-    hdr = _header_v0(g, step, DUMP_FIELDS)
+    hdr = _header_v0(g, step, DUMP_FIELDS, rank=rank)
     hdr += _array_header(80, [g.NX, g.NY, g.NZ])
-    name = f"{fbase}.{tag}.0"
-    native_io.write_file(name, hdr + rec.tobytes())
-    return [name]
+    names = _names(g, f"{fbase}.{tag}")
+    native_io.write_file(names[rank], hdr + rec.tobytes())
+    return _written(g, names)
 
 
 def dump_hydro(sim, state, sp_name: str, fbase: str,
@@ -143,18 +164,19 @@ def dump_hydro(sim, state, sp_name: str, fbase: str,
     """hydro_dump (dump.cc): V0 header + 16-float hydro_t records (the 14
     moments, two zero pads).  Returns the file names."""
     g = sim.grid
-    _local(g)
+    rank = _rank(g)
     step = int(state.step)
     tag = step if ftag is None else ftag
     k = _species_index(sim, sp_name)
     spp = sim.species[k].params
     rec = np.zeros((g.nv, 16), np.float32)
     rec[:, :H.N_HYDRO] = _host(H.compute_hydro(sim, state, k))
-    hdr = _header_v0(g, step, DUMP_HYDRO, sp_id=spp.id, q_m=spp.q / spp.m)
+    hdr = _header_v0(g, step, DUMP_HYDRO, sp_id=spp.id, q_m=spp.q / spp.m,
+                     rank=rank)
     hdr += _array_header(64, [g.NX, g.NY, g.NZ])
-    name = f"{fbase}.{tag}.0"
-    native_io.write_file(name, hdr + rec.astype("<f4").tobytes())
-    return [name]
+    names = _names(g, f"{fbase}.{tag}")
+    native_io.write_file(names[rank], hdr + rec.astype("<f4").tobytes())
+    return _written(g, names)
 
 
 def dump_particles(sim, state, sp_name: str, fbase: str,
@@ -163,7 +185,7 @@ def dump_particles(sim, state, sp_name: str, fbase: str,
     records of the live lanes, in slot order, with time-centered momenta
     (center_p before writing).  Returns the file names."""
     g = sim.grid
-    _local(g)
+    rank = _rank(g)
     step = int(state.step)
     tag = step if ftag is None else ftag
     k = _species_index(sim, sp_name)
@@ -178,25 +200,25 @@ def dump_particles(sim, state, sp_name: str, fbase: str,
     for nme in ("dx", "dy", "dz", "i", "ux", "uy", "uz", "w"):
         rec[nme] = _host(getattr(lsp, nme))[live]
     hdr = _header_v0(g, step, DUMP_PARTICLES, sp_id=spp.id,
-                     q_m=spp.q / spp.m)
+                     q_m=spp.q / spp.m, rank=rank)
     hdr += _array_header(32, [n])
-    name = f"{fbase}.{tag}.0"
-    native_io.write_file(name, hdr + rec.tobytes())
-    return [name]
+    names = _names(g, f"{fbase}.{tag}")
+    native_io.write_file(names[rank], hdr + rec.tobytes())
+    return _written(g, names)
 
 
 def dump_grid(sim, fbase: str):
     """dump_grid (dump.cc): the V0 header (the grid geometry), then the
     field and particle bcs and the topology.  Returns the file names."""
     g = sim.grid
-    _local(g)
-    hdr = _header_v0(g, 0, DUMP_GRID)
+    rank = _rank(g)
+    hdr = _header_v0(g, 0, DUMP_GRID, rank=rank)
     body = struct.pack("<6i", *g.field_bc)
     body += struct.pack("<6i", *g.particle_bc)
     body += struct.pack("<3i", *g.topology)
-    name = f"{fbase}.0"
-    native_io.write_file(name, hdr + body)
-    return [name]
+    names = _names(g, fbase)
+    native_io.write_file(names[rank], hdr + body)
+    return _written(g, names)
 
 
 # ---------------- new-style banded dumps (field_dump/hydro_dump with
@@ -216,7 +238,7 @@ def dump_fields_strided(sim, state, fbase: str, stride=(1, 1, 1),
     [1 : n+1 : stride], plus a ``{fbase}.{tag}.global`` text header
     recording topology, strides, band order and the file names."""
     g = sim.grid
-    _local(g)
+    rank = _rank(g)
     step = int(state.step)
     tag = step if ftag is None else ftag
     comps = list(components) if components is not None else list(FIELD_BANDS)
@@ -229,17 +251,19 @@ def dump_fields_strided(sim, state, fbase: str, stride=(1, 1, 1),
                                         1:g.nx + 1:sx], "<f4")
         for c in comps]
     shp = bands[0].shape
-    hdr = _header_v0(g, step, DUMP_FIELDS)
+    hdr = _header_v0(g, step, DUMP_FIELDS, rank=rank)
     hdr += _array_header(4 * len(comps), [shp[2], shp[1], shp[0]])
-    name = f"{fbase}.{tag}.0"
-    native_io.write_file(name, hdr + b"".join(b.tobytes() for b in bands))
-    with open(f"{fbase}.{tag}.global", "w") as fh:
-        fh.write(f"step {step}\n")
-        fh.write(f"grid {g.nx} {g.ny} {g.nz}\n")
-        fh.write(_global_header(g, (sx, sy, sz), shp))
-        fh.write("bands " + " ".join(comps) + "\n")
-        fh.write(f"files {name}\n")
-    return [name]
+    names = _names(g, f"{fbase}.{tag}")
+    native_io.write_file(names[rank],
+                         hdr + b"".join(b.tobytes() for b in bands))
+    if rank == 0:
+        with open(f"{fbase}.{tag}.global", "w") as fh:
+            fh.write(f"step {step}\n")
+            fh.write(f"grid {g.gnx} {g.gny} {g.gnz}\n")
+            fh.write(_global_header(g, (sx, sy, sz), shp))
+            fh.write("bands " + " ".join(comps) + "\n")
+            fh.write("files " + " ".join(names) + "\n")
+    return _written(g, names)
 
 
 def dump_hydro_strided(sim, state, sp_name: str, fbase: str,
@@ -247,7 +271,7 @@ def dump_hydro_strided(sim, state, sp_name: str, fbase: str,
     """New-style stride-subsampled band-sequential hydro dump (hydro_dump
     with dumpParams, dump.cc:662+); the bands are the 14 hydro moments."""
     g = sim.grid
-    _local(g)
+    rank = _rank(g)
     step = int(state.step)
     tag = step if ftag is None else ftag
     k = _species_index(sim, sp_name)
@@ -258,13 +282,15 @@ def dump_hydro_strided(sim, state, sp_name: str, fbase: str,
     a = a[1:g.nz + 1:sz, 1:g.ny + 1:sy, 1:g.nx + 1:sx]
     shp = a.shape[:3]
     bands = np.ascontiguousarray(np.moveaxis(a, 3, 0), "<f4")
-    hdr = _header_v0(g, step, DUMP_HYDRO, sp_id=spp.id, q_m=spp.q / spp.m)
+    hdr = _header_v0(g, step, DUMP_HYDRO, sp_id=spp.id, q_m=spp.q / spp.m,
+                     rank=rank)
     hdr += _array_header(4 * H.N_HYDRO, [shp[2], shp[1], shp[0]])
-    name = f"{fbase}.{tag}.0"
-    native_io.write_file(name, hdr + bands.tobytes())
-    with open(f"{fbase}.{tag}.global", "w") as fh:
-        fh.write(f"step {step}\nspecies {sp_name}\n")
-        fh.write(_global_header(g, (sx, sy, sz), shp))
-        fh.write(f"bands {H.N_HYDRO}\n")
-        fh.write(f"files {name}\n")
-    return [name]
+    names = _names(g, f"{fbase}.{tag}")
+    native_io.write_file(names[rank], hdr + bands.tobytes())
+    if rank == 0:
+        with open(f"{fbase}.{tag}.global", "w") as fh:
+            fh.write(f"step {step}\nspecies {sp_name}\n")
+            fh.write(_global_header(g, (sx, sy, sz), shp))
+            fh.write(f"bands {H.N_HYDRO}\n")
+            fh.write("files " + " ".join(names) + "\n")
+    return _written(g, names)

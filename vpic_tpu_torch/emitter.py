@@ -8,7 +8,9 @@ after the push (advance.cc:58-60).  Here the component list is a pair of
 static (voxel, face) arrays built on the host in numpy, equal to the JAX
 package's; emission is a fixed-shape masked injection: every component
 emits ``n_emit_per_face`` candidate lanes and those whose face is below
-threshold are dropped.  One device: the decomposed scans raise.
+threshold are dropped.  On a decomposed grid the per-rank scans
+(vpic_tpu/emitter.py:55-110, 147) are not ported yet: they raise, as the
+deck does for an emitter on a decomposed grid.
 
 Draw, then apply (as ``collision``): ``ChildLangmuir.draw(generator,
 device)`` makes the six standard variates the JAX op draws;
@@ -42,12 +44,12 @@ CHILD_LANGMUIR_NORM = 4.0 * math.sqrt(2.0) / 9.0  # Child law prefactor
 def _region_inside(g: Grid, region: Callable, shard):
     """Rasterize the region predicate over the ghosted mesh at the cell
     centres (deck/wrapper.h:310-383); ghost cells beyond the domain are
-    outside, so domain faces count as surface.  One device: a decomposed
-    grid or another shard raises."""
+    outside, so domain faces count as surface.  A decomposed grid or
+    another shard raises: the per-rank scans are not ported yet."""
     if g.sharded or shard not in (None, (0, 0, 0)):
         raise NotImplementedError(
-            "emitters on a decomposed grid are not ported: they wait for "
-            "decomposition")
+            "emitters on a decomposed grid are not ported yet (ROADMAP "
+            "Queue 1: sharded emitters and stochastic operators)")
     xc = g.x0 + g.dx * (np.arange(g.NX) - 0.5)
     yc = g.y0 + g.dy * (np.arange(g.NY) - 0.5)
     zc = g.z0 + g.dz * (np.arange(g.NZ) - 0.5)
@@ -180,8 +182,8 @@ class ChildLangmuir:
                  norm: float = CHILD_LANGMUIR_NORM, max_streak: int = 4):
         if len(components) == 3:
             raise NotImplementedError(
-                "sharded emitter components are not ported: they wait for "
-                "decomposition")
+                "sharded emitter components are not ported yet (ROADMAP "
+                "Queue 1: sharded emitters and stochastic operators)")
         vox, face = (np.asarray(c) for c in components)
         self.sp_idx, self.spp = sp_idx, spp
         self.n_emit = n_emit_per_face

@@ -10,8 +10,11 @@ its partitioners (src/grid/partition.c):
   read by the step functions as plain Python values.
 * The reference's per-voxel ``neighbor[6*nv]`` table (grid.h:116-121) is
   replaced by arithmetic neighbor logic + a 6-entry per-face BC code.
-* ``topology`` describes a domain decomposition; the port runs one device
-  (topology (1, 1, 1)) and refuses decomposed grids where it would need one.
+* ``topology`` describes a domain decomposition: one process per rank
+  (``parallel/mesh.py``), each holding one brick.  A rank's faces follow
+  from its coordinates and the partner tables: ``rank_field_bc`` and
+  ``rank_particle_bc`` give the codes the rank's field ops and push apply
+  (REMOTE where a neighbouring rank owns the face).
 
 Voxel indexing matches VPIC's FORTRAN-style convention
 (``VOXEL(x,y,z) = x + (nx+2)*(y + (ny+2)*z)``, grid.h:136): arrays are stored
@@ -22,6 +25,7 @@ x is the unit-stride direction.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -245,11 +249,98 @@ class Grid:
         return s ** -0.5
 
 
-def flat_rank(g: Grid):
-    """This shard's flat rank (x-major, z-minor -- the dump/_shard_iter
-    order).  Decomposed runs are not ported yet: the port runs one device."""
-    raise NotImplementedError(
-        "flat_rank: sharded grids are not supported by vpic_tpu_torch yet")
+def flat_rank(g: Grid) -> int:
+    """This process's flat rank (x-major, z-minor -- the dump/_shard_iter
+    order): 0 on an undecomposed grid, else the current mesh's rank."""
+    from .parallel.mesh import rank_of
+    return rank_of(g)
+
+
+def rank_coords(g: Grid, rank: int) -> Tuple[int, int, int]:
+    """(ix, iy, iz) of flat rank ``rank``, x-major and z-minor."""
+    px, py, pz = g.topology
+    return rank // (py * pz), (rank // pz) % py, rank % pz
+
+
+@functools.lru_cache(maxsize=256)
+def halo_partners(g: Grid) -> Tuple[Tuple[int, ...], ...]:
+    """Per face, flat rank -> the rank whose opposite face it exchanges
+    with (-1: none): the join tables where the grid has them, else the
+    cyclic neighbour along every decomposed axis, as the JAX package's
+    whole-axis ppermutes wrap (a rank on the edge of a non-periodic axis
+    receives its wrap neighbour's plane and keeps its own rule)."""
+    if g.face_partners is not None:
+        return g.face_partners
+    px, py, pz = g.topology
+    n = px * py * pz
+    tabs = [[-1] * n for _ in range(6)]
+    for r in range(n):
+        co = list(rank_coords(g, r))
+        for ax, nax in enumerate((px, py, pz)):
+            if nax == 1:
+                continue
+            for side, face in ((-1, ax), (1, ax + 3)):
+                nb = co.copy()
+                nb[ax] = (co[ax] + side) % nax
+                tabs[face][r] = (nb[0] * py + nb[1]) * pz + nb[2]
+    return tuple(tuple(t) for t in tabs)
+
+
+def _on_edge(g: Grid, face: int, rank: int) -> bool:
+    """True when ``rank``'s face ``face`` applies the face's own rule: it
+    has no partner in the join tables, or (cartesian) it lies on the
+    global domain's face or the axis is not decomposed."""
+    if g.face_partners is not None:
+        return g.face_partners[face][rank] < 0
+    ax = FACE_AXIS[face]
+    if g.topology[ax] == 1:
+        return True
+    c = rank_coords(g, rank)[ax]
+    return c == (0 if FACE_SIDE[face] < 0 else g.topology[ax] - 1)
+
+
+@functools.lru_cache(maxsize=256)
+def rank_field_bc(g: Grid, rank: int) -> Tuple[int, ...]:
+    """The field BC code of each of ``rank``'s faces: REMOTE where the face
+    takes a neighbour's planes, else the face's own rule (an unjoined face
+    of a REMOTE axis wraps locally: PERIODIC), as vpic_tpu/ops/fields.py
+    _ghost_value picks per shard."""
+    out = []
+    for face, bc in enumerate(g.field_bc):
+        if g.face_partners is not None:
+            out.append(REMOTE if not _on_edge(g, face, rank)
+                       else (PERIODIC if bc == REMOTE else bc))
+        elif g.topology[FACE_AXIS[face]] == 1 or bc == REMOTE:
+            out.append(bc)
+        else:
+            out.append(bc if _on_edge(g, face, rank) else REMOTE)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def rank_particle_bc(g: Grid, rank: int) -> Tuple[int, ...]:
+    """The particle BC code of each of ``rank``'s faces: P_REMOTE where a
+    lane leaving through it migrates to a neighbour (an interior face of a
+    decomposed axis, a joined face, or a face whose code is P_REMOTE),
+    else the face's own rule -- vpic_tpu/ops/push.py:505-553 and
+    pallas_push.py _eff_bc."""
+    out = []
+    for face, bc in enumerate(g.particle_bc):
+        ax = FACE_AXIS[face]
+        joined = g.face_partners is not None and \
+            any(v >= 0 for v in g.face_partners[face])
+        if (g.topology[ax] > 1 or joined) and bc != P_REMOTE:
+            out.append(bc if _on_edge(g, face, rank) else P_REMOTE)
+        else:
+            out.append(bc)
+    return tuple(out)
+
+
+def local_corner(g: Grid, rank: int) -> Tuple[float, float, float]:
+    """The global coordinates of ``rank``'s brick corner (x0, y0, z0)."""
+    sx, sy, sz = rank_coords(g, rank)
+    return (g.x0 + sx * g.nx * g.dx, g.y0 + sy * g.ny * g.dy,
+            g.z0 + sz * g.nz * g.dz)
 
 
 def cartesian_partners(g: Grid) -> Tuple[Tuple[int, ...], ...]:

@@ -9,6 +9,12 @@ per-voxel-face particle-BC code table (the JAX package's
 ``Simulation._vbc``).  Neither imports the JAX package: the input is read
 by attribute (or key) names, which both packages share.  Values move
 bit-exactly; ``i`` stays int32 and ``live`` bool.
+
+Decomposed states: the JAX package's global sharded state carries the
+leading ``(px, py, pz)`` dims on every leaf; ``state_from_numpy(...,
+rank=r)`` takes flat rank r's brick of it (x-major, z-minor), and
+``gather_to_numpy(state, g)`` gathers every rank's state to rank 0 in that
+layout (None on the other ranks).
 """
 
 from __future__ import annotations
@@ -47,9 +53,31 @@ def _diag_value(name, v, device):
     return _tensor(v, device)
 
 
-def state_from_numpy(np_state, device="cuda") -> SimState:
+def _pick(np_state, rank: int):
+    """Flat rank ``rank``'s brick of a state whose leaves carry the leading
+    (px, py, pz) dims, as a dict."""
+    f = _get(np_state, "fields")
+    px, py, pz = np.shape(_get(f, "ex"))[:3]
+    idx = (rank // (py * pz), (rank // pz) % py, rank % pz)
+    pick = lambda a: None if a is None else np.asarray(a)[idx]
+    rng = (np_state.get("rng") if isinstance(np_state, dict)
+           else getattr(np_state, "rng", None))
+    return dict(
+        fields={n: pick(_get(f, n)) for n in FIELD_NAMES},
+        species=[{n: pick(_get(sp, n)) for n in SPECIES_NAMES}
+                 for sp in _get(np_state, "species")],
+        step=pick(_get(np_state, "step")),
+        diag={k: pick(v) for k, v in (_get(np_state, "diag") or {}).items()},
+        rng=None if rng is None else pick(rng))
+
+
+def state_from_numpy(np_state, device="cuda", rank: int = None) -> SimState:
     """A numpy-leaved SimState (object or dict) -> the port's SimState on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU); with
+    ``rank``, that flat rank's brick of a decomposed (leading (px, py,
+    pz) dims) state."""
+    if rank is not None:
+        np_state = _pick(np_state, rank)
     f = _get(np_state, "fields")
     fields = FieldState(**{n: _tensor(_get(f, n), device, np.float32)
                            for n in FIELD_NAMES})
@@ -79,6 +107,27 @@ def state_to_numpy(state: SimState) -> dict:
         step=int(state.step),
         diag={k: host(v) for k, v in state.diag.items()},
         rng=None if state.rng is None else np.array(state.rng, np.uint32))
+
+
+def gather_to_numpy(state: SimState, g) -> dict:
+    """Every rank's ``state`` as one state_to_numpy dict with the leading
+    (px, py, pz) dims, on rank 0 (None on the others); every rank makes
+    the call.  An undecomposed grid's state comes back as state_to_numpy
+    gives it."""
+    host = state_to_numpy(state)
+    if not g.sharded:
+        return host
+    from .checkpoint import _gather
+    from .parallel.mesh import mesh_of
+    m = mesh_of(g)
+    out = dict(
+        fields={n: _gather(m, g, a) for n, a in host["fields"].items()},
+        species=[{n: _gather(m, g, a) for n, a in sp.items()}
+                 for sp in host["species"]],
+        step=_gather(m, g, np.int32(host["step"])),
+        diag={k: _gather(m, g, v) for k, v in host["diag"].items()},
+        rng=None if host["rng"] is None else _gather(m, g, host["rng"]))
+    return out if m.rank == 0 else None
 
 
 def vbc_from_numpy(vbc, device="cuda") -> torch.Tensor:

@@ -18,7 +18,7 @@ import numpy as np
 
 from .. import boundary_ops as BO
 from ..deck import Simulation
-from ..grid import ABSORB_FIELDS, BOUNDARY
+from ..grid import ABSORB_FIELDS, BOUNDARY, flat_rank, rank_coords
 
 
 @dataclass
@@ -105,12 +105,16 @@ def build(p: LPIParams = LPIParams(), device="cuda") -> Simulation:
 
     # Laser injection: drive Ey on the x=1 boundary plane each step with a
     # smooth turn-on ramp (begin_field_injection idiom), in float32 as the
-    # JAX deck computes it.  One device: the plane is the global x-lo face.
+    # JAX deck computes it.  Only a rank on the global x-lo face (ix == 0)
+    # drives it: another rank's local x = 1 plane is interior.
     f32 = np.float32
     e0 = p.laser_a0 * me * c * w_l / ec
     ramp_steps = int(2 * math.pi / (w_l * dt))
+    gx = sim.grid
 
     def field_injection(f, step):
+        if gx.sharded and rank_coords(gx, flat_rank(gx))[0] != 0:
+            return f
         t = f32(step) * f32(dt)
         ramp = np.minimum(f32(step) / f32(ramp_steps), f32(1.0))
         drive = f32(e0) * ramp * np.sin(f32(w_l) * t)

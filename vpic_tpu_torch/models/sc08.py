@@ -9,7 +9,7 @@ with per-population macro weights.  The reference demo ran 150 x 25 x 100
 cells at 1 ppc on a (1, 1, 4) decomposition; the defaults here are a
 test-scale version of the same physics.  Neither grid is tiled by the 8^3
 bricks: the deck takes the general path (the 3-D push kernel without home
-maps), one device.
+maps), on one domain or decomposed.
 """
 
 from __future__ import annotations

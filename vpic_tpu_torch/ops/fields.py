@@ -1,5 +1,5 @@
 """Yee-mesh FDTD field solver, divergence cleaners and face synchronization
-on one device (counterpart of ``vpic_tpu/ops/fields.py``).
+(counterpart of ``vpic_tpu/ops/fields.py``).
 
 * Stencils are whole-array slice arithmetic over ghosted ``[z, y, x]``
   tensors.
@@ -7,8 +7,16 @@ on one device (counterpart of ``vpic_tpu/ops/fields.py``).
   FieldState; statements run in the JAX package's order, so each one sees
   exactly the values its counterpart sees.
 * Ghost fills and local BCs: PERIODIC faces wrap; pec, symmetric/pmc and
-  absorbing faces apply their local rule.  REMOTE faces and join tables
-  belong to decomposed runs, which the port does not run yet: they raise.
+  absorbing faces apply their local rule.
+* Decomposed grids (one process per rank, ``parallel/mesh.py``): a rank's
+  faces are ``grid.rank_field_bc``.  A REMOTE face takes its partner's
+  plane (``_shard_halo_plane``: the JAX package's ppermute, here a
+  ``Mesh.ppermute`` over the ``grid.halo_partners`` tables), and the
+  shared-face sums and averages combine a rank's boundary plane with its
+  partner's; a face on the global domain's edge applies its own rule, as
+  the JAX package's per-shard where() picks.  Every rank makes every
+  exchange in the same order (the exchange is collective even where a
+  rank keeps its own rule), and ``all_sum`` is ``Mesh.all_sum``.
 
 Spatial axis convention: X=0, Y=1, Z=2; array axes are [z,y,x] so the
 array axis of spatial axis a is ``2 - a``.
@@ -21,7 +29,7 @@ from typing import Tuple
 import torch
 
 from ..grid import (ABSORB_FIELDS, ANTI_SYMMETRIC, PERIODIC, PMC, REMOTE,
-                    SYMMETRIC, Grid)
+                    SYMMETRIC, Grid, flat_rank, halo_partners, rank_field_bc)
 from ..state import FieldState, MaterialCoeffs
 
 _ALL = slice(None)
@@ -74,20 +82,47 @@ def _axes_of(axis: int) -> Tuple[int, int]:
     return ((axis + 1) % 3, (axis + 2) % 3)
 
 
-def _check_local(g: Grid):
-    if g.sharded or g.face_partners is not None:
-        raise NotImplementedError(
-            "vpic_tpu_torch runs one device: decomposed grids and join "
-            "tables are not supported yet")
+def _rank_bc(g: Grid):
+    """This rank's six field face codes (the grid's own undecomposed)."""
+    return rank_field_bc(g, flat_rank(g)) if g.sharded else g.field_bc
+
+
+def _exchanges(g: Grid, face: int) -> bool:
+    """True when some rank takes face ``face``'s ghost from a partner (the
+    exchange is then made by every rank)."""
+    return g.sharded and any(p >= 0 for p in halo_partners(g)[face])
+
+
+def _pairs(g: Grid, face: int):
+    """(source, destination) pairs of face ``face``: each rank receives
+    from its partner on that face."""
+    return [(p, r) for r, p in enumerate(halo_partners(g)[face]) if p >= 0]
+
+
+def _shard_halo_plane(a, axis: int, side: int, g: Grid):
+    """The partner's boundary plane for my ghost on (axis, side): every rank
+    sends plane n toward +axis for the low ghosts, plane 1 toward -axis for
+    the high ghosts (vpic_tpu/ops/fields.py:138-155)."""
+    from ..parallel.mesh import mesh_of
+    n = (g.nx, g.ny, g.nz)[axis]
+    plane = get_plane(a, axis, n if side < 0 else 1)
+    return mesh_of(g).ppermute(plane, _pairs(g, axis + (0 if side < 0
+                                                        else 3)))
 
 
 def _ghost_value(local_fn, a, axis, side, bc, g: Grid):
-    """The ghost plane's new value on one device: periodic faces wrap, the
-    rest apply their local rule."""
-    _check_local(g)
-    if bc == REMOTE:
-        raise NotImplementedError("REMOTE field faces need a decomposed run")
-    if bc == PERIODIC:
+    """The ghost plane's new value: the partner's plane on a REMOTE face of
+    this rank, a wrap on a PERIODIC one, else the face's local rule."""
+    face = axis + (0 if side < 0 else 3)
+    remote = _shard_halo_plane(a, axis, side, g) \
+        if _exchanges(g, face) else None
+    eff = _rank_bc(g)[face]
+    if eff == REMOTE:
+        if remote is None:
+            raise ValueError(f"field face {face} is REMOTE on an "
+                             "undecomposed grid")
+        return remote
+    if eff == PERIODIC:
         n = (g.nx, g.ny, g.nz)[axis]
         return get_plane(a, axis, n if side < 0 else 1)
     return local_fn()
@@ -223,20 +258,20 @@ def ghost_div_b(f: FieldState, g: Grid) -> FieldState:
 
 def _local_faces(g: Grid):
     """Yield (axis, side, bc) for faces with a *local* (non-comm) BC."""
-    _check_local(g)
     for axis in range(3):
         for side in (-1, 1):
             bc = g.axis_bc(axis, side)
-            if bc == REMOTE:
-                raise NotImplementedError(
-                    "REMOTE field faces need a decomposed run")
-            if bc != PERIODIC:
+            if bc not in (PERIODIC, REMOTE):
                 yield axis, side, bc
 
 
 def _set_boundary_plane(a, axis, side, g: Grid, new_plane):
-    """Set the boundary plane (index 1 or n+1) in place."""
+    """Set the boundary plane (index 1 or n+1) in place; on a decomposed
+    grid only a rank whose face keeps its own rule does (the others' plane
+    is shared with a partner)."""
     n = (g.nx, g.ny, g.nz)[axis]
+    if g.sharded and _rank_bc(g)[axis + (0 if side < 0 else 3)] == REMOTE:
+        return a
     return set_plane(a, axis, 1 if side < 0 else n + 1, new_plane)
 
 
@@ -302,48 +337,92 @@ def adjust_rhob(f: FieldState, g: Grid) -> FieldState:
 
 
 # ---------------------------------------------------------------------------
-# Shared-face synchronization (remote.c:298-619), local halves: a PERIODIC
-# axis combines plane 1 with plane n+1.
+# Shared-face synchronization (remote.c:298-619).  A locally PERIODIC axis
+# combines plane 1 with plane n+1; on a decomposed axis each rank combines
+# its boundary planes with its partners' (the combine is commutative, so
+# both ranks of a face get bit-equal planes).
 # ---------------------------------------------------------------------------
 
 def _sync_axes(g: Grid):
-    """Axes whose boundary planes are shared (both faces periodic)."""
-    _check_local(g)
+    """Axes whose boundary planes are shared: (axis, across ranks?)."""
     for axis in range(3):
-        if (g.axis_bc(axis, -1) == PERIODIC
-                and g.axis_bc(axis, 1) == PERIODIC):
-            yield axis
+        if _exchanges(g, axis) or _exchanges(g, axis + 3):
+            yield axis, True
+        elif (g.axis_bc(axis, -1) == PERIODIC
+              and g.axis_bc(axis, 1) == PERIODIC):
+            yield axis, False
 
 
-def _combine_shared(a, axis: int, g: Grid, mode: str, want_err: bool = False):
+def _combine(lo, hi, mode):
+    if mode == "sum":
+        return lo + hi
+    if mode == "avg":
+        return 0.5 * (lo + hi)
+    raise ValueError(mode)
+
+
+def _combine_shared(a, axis: int, g: Grid, cross: bool, mode: str,
+                    want_err: bool = False):
     n = (g.nx, g.ny, g.nz)[axis]
     lo = get_plane(a, axis, 1)
     hi = get_plane(a, axis, n + 1)
-    if mode == "sum":
-        v = lo + hi
-    elif mode == "avg":
-        v = 0.5 * (lo + hi)
-    else:
-        raise ValueError(mode)
-    err = torch.sum((lo - hi) ** 2) if want_err else None
-    set_plane(a, axis, 1, v)
-    set_plane(a, axis, n + 1, v)
+    err = None
+    if not cross:
+        v = _combine(lo, hi, mode)
+        if want_err:
+            err = torch.sum((lo - hi) ** 2)
+        set_plane(a, axis, 1, v)
+        set_plane(a, axis, n + 1, v)
+        return err
+    # vpic_tpu/ops/fields.py:481-540: my lo partner's high plane, my hi
+    # partner's low plane
+    from ..parallel.mesh import mesh_of
+    m = mesh_of(g)
+    recv_lo = m.ppermute(hi, _pairs(g, axis))
+    recv_hi = m.ppermute(lo, _pairs(g, axis + 3))
+    bc = _rank_bc(g)
+    j_lo, j_hi = bc[axis] == REMOTE, bc[axis + 3] == REMOTE
+    # an unjoined rank of a locally periodic axis wraps (join tables only)
+    wrap = (g.face_partners is not None and g.axis_bc(axis, -1) == PERIODIC
+            and g.axis_bc(axis, 1) == PERIODIC)
+    base = _combine(lo, hi, mode) if wrap else None
+    new_lo = _combine(lo, recv_lo, mode) if j_lo else \
+        (base if wrap else lo)
+    new_hi = _combine(hi, recv_hi, mode) if j_hi else \
+        (base if wrap else hi)
+    if want_err:
+        if g.face_partners is None:
+            # the JAX package's cartesian error sums every rank's both
+            # faces (an edge rank's wrap neighbour included)
+            err = torch.sum((lo - recv_lo) ** 2) + \
+                torch.sum((hi - recv_hi) ** 2)
+        else:
+            err = torch.zeros((), dtype=lo.dtype, device=lo.device)
+            if j_lo:
+                err = err + torch.sum((lo - recv_lo) ** 2)
+            if j_hi:
+                err = err + torch.sum((hi - recv_hi) ** 2)
+    set_plane(a, axis, 1, new_lo)
+    set_plane(a, axis, n + 1, new_hi)
     return err
 
 
 def all_sum(x, g: Grid):
-    """mp_allsum analogue: identity on one device."""
-    _check_local(g)
-    return x
+    """mp_allsum analogue: the sum over every rank (``Mesh.all_sum``);
+    identity on an undecomposed grid."""
+    if not g.sharded:
+        return x
+    from ..parallel.mesh import mesh_of
+    return mesh_of(g).all_sum(x)
 
 
 def synchronize_jf(f: FieldState, g: Grid) -> FieldState:
     """synchronize_jf (remote.c:417-508): local adjust then shared-face sum
     of the tangential current components."""
     adjust_jf(f, g)
-    for axis in _sync_axes(g):
+    for axis, cross in _sync_axes(g):
         for t in _axes_of(axis):
-            _combine_shared(getattr(f, _JF[t]), axis, g, "sum")
+            _combine_shared(getattr(f, _JF[t]), axis, g, cross, "sum")
     return f
 
 
@@ -352,9 +431,9 @@ def synchronize_rho(f: FieldState, g: Grid) -> FieldState:
     and rhob average (rhob is accumulated locally pre-doubled)."""
     adjust_rhof(f, g)
     adjust_rhob(f, g)
-    for axis in _sync_axes(g):
-        _combine_shared(f.rhof, axis, g, "sum")
-        _combine_shared(f.rhob, axis, g, "avg")
+    for axis, cross in _sync_axes(g):
+        _combine_shared(f.rhof, axis, g, cross, "sum")
+        _combine_shared(f.rhob, axis, g, cross, "avg")
     return f
 
 
@@ -365,13 +444,13 @@ def synchronize_tang_e_norm_b(f: FieldState, g: Grid):
     adjust_tang_e(f, g)
     adjust_norm_b(f, g)
     err = torch.zeros((), dtype=torch.float32, device=f.ex.device)
-    for axis in _sync_axes(g):
-        err = err + _combine_shared(getattr(f, _CB[axis]), axis, g, "avg",
-                                    want_err=True)
+    for axis, cross in _sync_axes(g):
+        err = err + _combine_shared(getattr(f, _CB[axis]), axis, g, cross,
+                                    "avg", want_err=True)
         for t in _axes_of(axis):
-            err = err + _combine_shared(getattr(f, _E[t]), axis, g, "avg",
-                                        want_err=True)
-            _combine_shared(getattr(f, _TCA[t]), axis, g, "avg")
+            err = err + _combine_shared(getattr(f, _E[t]), axis, g, cross,
+                                        "avg", want_err=True)
+            _combine_shared(getattr(f, _TCA[t]), axis, g, cross, "avg")
     return f, all_sum(err, g)
 
 

@@ -18,9 +18,12 @@ or a per-voxel-face table; ``ops/push.has_walls``) the caller passes a
 ``push.Walls``: the kernel's WALLS instance then kills lanes at absorbing
 faces (their charge into ``walls.rhob``), parks lanes at custom faces and
 writes every lane's pend code and remaining displacement for
-``boundary.boundary_p``, as the general path's advance_p does.  Without
-wall faces the launch runs the instance that has none of that code.
-Remote faces and decomposed grids make ``supports`` raise.
+``boundary.boundary_p``, as the general path's advance_p does.  On a
+decomposed grid a rank's remote faces are wall faces too: the WALLS
+instance parks a lane that reaches one with pend = face for the migration
+rounds (``push.particle_bcs`` gives the kernel the rank's face codes).
+Without wall faces the launch runs the instance that has none of that
+code.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from ..grid import P_PERIODIC, Grid
 from ..state import SpeciesState
 from . import _build
 from .push import (UNFINISHED, Walls, advance_p, check_particle_bcs,
-                   gather_sp_rows, has_walls)
+                   gather_sp_rows, has_walls, particle_bcs)
 
 BUCKET = 128
 KERNEL = "fused_push2d"
@@ -50,7 +53,7 @@ deposits = None
 
 def supports(g: Grid) -> bool:
     """True when the push kernel can run this grid; raises otherwise
-    (2-D, one device, no remote particle faces)."""
+    (2-D, and faces a walk can serve: push.check_particle_bcs)."""
     if g.nz != 1:
         raise NotImplementedError(
             f"nz={g.nz}: the fused push covers 2-D grids (nz == 1); 3-D "
@@ -209,18 +212,18 @@ def c_species_table(species: Sequence[SpeciesState], qms, g: Grid,
 def push_constants(g: Grid):
     """The entry points' grid arguments: cdt_dx, cdt_dy, cdt_dz, nx, ny,
     nz, and whether each axis' particle faces are periodic."""
-    periodic = [int(g.axis_bc(ax, -1, particles=True) == P_PERIODIC)
-                for ax in range(3)]
+    bcs = particle_bcs(g)
+    periodic = [int(bcs[ax] == P_PERIODIC) for ax in range(3)]
     return (g.cvac * g.dt * g.rdx, g.cvac * g.dt * g.rdy,
             g.cvac * g.dt * g.rdz, g.nx, g.ny, g.nz, *periodic)
 
 
 def wall_constants(g: Grid, walls):
-    """The entry points' wall arguments: walls (0/1), the six faces'
-    particle BC codes, the vbc table and rhob (null without walls)."""
+    """The entry points' wall arguments: walls (0/1), this rank's six
+    particle face codes, the vbc table and rhob (null without walls)."""
     if walls is None:
         return (0, c_array(ctypes.c_int, [0] * 6), None, None)
-    return (1, c_array(ctypes.c_int, list(g.particle_bc)),
+    return (1, c_array(ctypes.c_int, list(particle_bcs(g))),
             None if walls.vbc is None else walls.vbc.data_ptr(),
             walls.rhob.data_ptr())
 

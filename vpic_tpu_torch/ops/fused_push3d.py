@@ -118,11 +118,12 @@ def supports3d(g: Grid, max_capacity: int = 0) -> bool:
 
 
 def check3d(g: Grid, max_capacity: int = 0, bricks: bool = True) -> None:
-    """Raise for 3-D decks the 3-D kernel cannot push: nz > 1, one device,
-    no remote faces, int32 lane and voxel indices, and with ``bricks`` (a
-    home map or the residency outbox) the brick rule of supports3d.  Without
-    home maps the kernel walks any grid, every deposit on the global path:
-    the deck's general path pushes the grids the bricks do not tile so."""
+    """Raise for 3-D decks the 3-D kernel cannot push: nz > 1, faces a
+    walk can serve (push.check_particle_bcs), int32 lane and voxel
+    indices, and with ``bricks`` (a home map or the residency outbox) the
+    brick rule of supports3d.  Without home maps the kernel walks any
+    grid, every deposit on the global path: the deck's general path
+    pushes the grids the bricks do not tile so."""
     if g.nz <= 1:
         raise ValueError(f"nz={g.nz}: the 3-D path needs nz > 1")
     if bricks and not supports3d(g, max_capacity):

@@ -82,12 +82,12 @@ def accumulate_hydro_p(hydro, sp: SpeciesState, fcoef, g: Grid, qsp, msp):
 
 
 def synchronize_hydro(hydro, g: Grid):
-    """synchronize_hydro_array (hydro_array.c), one device: sum the node
-    moments on shared periodic faces so diagnostics see total values; in
-    place, returns ``hydro``."""
+    """synchronize_hydro_array (hydro_array.c): sum the node moments on
+    shared faces (periodic wrap, or across ranks) so diagnostics see total
+    values; in place, returns ``hydro``."""
     h = hydro.view(g.NZ, g.NY, g.NX, N_HYDRO)
-    for axis in _sync_axes(g):
-        _combine_shared(h, axis, g, "sum")
+    for axis, cross in _sync_axes(g):
+        _combine_shared(h, axis, g, cross, "sum")
     return hydro
 
 

@@ -3,8 +3,10 @@ re-injection, boundary_p.cc:440-494; ``_continue_walk`` in
 ``vpic_tpu/boundary_ops.py``).
 
 ``move_p`` walks the remaining displacement of a species' lanes that are
-live and marked ``active``, against the domain faces only (as the JAX
-package's continuation, no per-voxel-face table), and writes the result
+live and marked ``active``, against this rank's domain faces (and a
+per-voxel-face table where the caller passes one: the migration rounds
+walk received lanes on with it, vpic_tpu/boundary.py:176-190; a handler's
+continuation passes none, as the JAX package's), and writes the result
 into the species in place.  On CUDA tensors it launches
 ``csrc/move_p.cu`` (one launch, one thread per slot, sharing the walk of
 the push kernels, ``push_lane.cuh``); on CPU tensors it runs the plain
@@ -21,7 +23,7 @@ import torch
 from ..grid import Grid
 from . import _build
 from .fused_push import _check
-from .push import decode_voxel, streak_walk
+from .push import decode_voxel, particle_bcs, streak_walk
 
 KERNEL = "move_p"
 
@@ -31,7 +33,7 @@ launches = 0
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 12
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
              + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -45,13 +47,13 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def move_p_ref(sp, pend, disp, acc, rhob, g: Grid, qsp, active,
-               max_streak: int = 4):
+               max_streak: int = 4, vbc=None):
     """Plain version of move_p: streak_walk over every lane, the lanes that
     are not walking masked out."""
     (pos, disp, coords, u, alive, pend, acc, rhob) = streak_walk(
         g, qsp, sp.w, (sp.dx, sp.dy, sp.dz), tuple(disp),
         decode_voxel(sp.i, g), (sp.ux, sp.uy, sp.uz), active & sp.live,
-        sp.live, pend, acc, rhob, max_streak)
+        sp.live, pend, acc, rhob, max_streak, vbc=vbc)
     vox = coords[0] + g.NX * (coords[1] + g.NY * coords[2])
     for name, new in (("dx", pos[0]), ("dy", pos[1]), ("dz", pos[2]),
                       ("i", vox), ("ux", u[0]), ("uy", u[1]), ("uz", u[2])):
@@ -62,16 +64,18 @@ def move_p_ref(sp, pend, disp, acc, rhob, g: Grid, qsp, active,
 
 
 def move_p(sp, pend, disp, acc, rhob, g: Grid, qsp, active,
-           max_streak: int = 4):
+           max_streak: int = 4, vbc=None):
     """Walk the remaining displacement ``disp`` (a triple of (N,) tensors or
     a (3, N) tensor) of the lanes of ``sp`` that are live and ``active``,
     from their offsets, momentum and voxel: deposits into ``acc`` (nv, 12),
     an absorbed lane's charge (species charge ``qsp``) into ``rhob`` (nv,),
     both in place.  The species' lane tensors are updated in place (a lane
     that died: live False, w 0; every dead lane's w is 0 afterwards, as in
-    the plain version).  Returns (species with np recounted, pend, disp,
-    acc, rhob): pend is the (N,) int32 pend codes with UNFINISHED where the
-    walk ran out of rounds and CUSTOM_BASE + face where it parked again.
+    the plain version).  ``vbc`` is the (nv, 6) int32 per-voxel-face code
+    table or None.  Returns (species with np recounted, pend, disp, acc,
+    rhob): pend is the (N,) int32 pend codes with UNFINISHED where the walk
+    ran out of rounds, CUSTOM_BASE + face where it parked again and face
+    where it reached a face another rank owns.
 
     CUDA tensors: one kernel launch; ``pend`` is updated in place when it is
     a contiguous int32 tensor, and the displacement comes back as the rows
@@ -81,7 +85,7 @@ def move_p(sp, pend, disp, acc, rhob, g: Grid, qsp, active,
     dev = sp.dx.device
     if dev.type == "cpu":
         return move_p_ref(sp, pend, disp, acc, rhob, g, qsp, active,
-                          max_streak)
+                          max_streak, vbc)
     if dev.type != "cuda":
         raise ValueError(f"move_p: unsupported device {dev}")
     n = sp.capacity
@@ -92,6 +96,8 @@ def move_p(sp, pend, disp, acc, rhob, g: Grid, qsp, active,
     _check(active, "active", torch.bool, (n,), dev)
     _check(acc, "acc", torch.float32, (g.nv, 12), dev)
     _check(rhob, "rhob", torch.float32, (g.nv,), dev)
+    if vbc is not None:
+        _check(vbc, "vbc", torch.int32, (g.nv, 6), dev)
     pend = pend.to(torch.int32).contiguous()
     disp = (torch.stack(tuple(disp)) if not isinstance(disp, torch.Tensor)
             else disp).to(torch.float32).contiguous()
@@ -105,7 +111,8 @@ def move_p(sp, pend, disp, acc, rhob, g: Grid, qsp, active,
         sp.uz.data_ptr(), sp.w.data_ptr(), sp.live.data_ptr(),
         active.data_ptr(), pend.data_ptr(), disp.data_ptr(), float(qsp),
         float(qsp * g.r8V), acc.data_ptr(), rhob.data_ptr(), g.nx, g.ny,
-        g.nz, (ctypes.c_int * 6)(*g.particle_bc), max_streak, stream)
+        g.nz, (ctypes.c_int * 6)(*particle_bcs(g)),
+        None if vbc is None else vbc.data_ptr(), max_streak, stream)
     if rc != 0:
         msg = lib.move_p_error_string(rc).decode()
         raise RuntimeError(f"move_p launch failed: {msg} ({rc})")

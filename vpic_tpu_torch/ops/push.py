@@ -9,13 +9,15 @@ one (nv, 12) quarter-face accumulator.  This module is also the plain
 version of the hand-written push kernels (``ops/fused_push.py``,
 ``ops/fused_push3d.py``).
 
-Particle faces, one device: periodic and reflecting faces are walked
-through; at an absorbing face the lane dies and its charge goes to rhob;
-at a custom face (ids <= FIRST_CUSTOM_PBC) the lane is parked for
-``boundary.boundary_p`` with pend = CUSTOM_BASE + face and its remaining
-displacement.  A per-voxel-face code table ``vbc`` (set_region_particle_bc)
-overrides the domain rule at the faces it marks.  Remote faces and
-decomposed grids raise NotImplementedError.
+Particle faces: periodic and reflecting faces are walked through; at an
+absorbing face the lane dies and its charge goes to rhob; at a custom face
+(ids <= FIRST_CUSTOM_PBC) the lane is parked for ``boundary.boundary_p``
+with pend = CUSTOM_BASE + face and its remaining displacement; on a
+decomposed grid a rank's REMOTE face (``grid.rank_particle_bc``: a face a
+neighbouring rank owns) parks it with pend = face, for the migration
+rounds of ``boundary.boundary_p`` (vpic_tpu/ops/push.py:505-553).  A
+per-voxel-face code table ``vbc`` (set_region_particle_bc) overrides the
+domain rule at the faces it marks.
 
 All arithmetic is float32 in the JAX package's operation order.
 """
@@ -27,7 +29,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..grid import (ABSORB_PARTICLES, P_PERIODIC, P_REMOTE,
-                    REFLECT_PARTICLES, Grid)
+                    REFLECT_PARTICLES, Grid, flat_rank, rank_particle_bc)
 from ..state import SpeciesState
 
 ONE_THIRD = 1.0 / 3.0
@@ -35,7 +37,7 @@ TWO_FIFTEENTHS = 2.0 / 15.0
 BIG = 3.4e38
 
 # pend_face codes: -1 = finished locally, 0..5 = left through that face
-# toward another domain (decomposed runs only), 6 = ran out of streak
+# toward another rank (decomposed runs only), 6 = ran out of streak
 # iterations, >= 8 = parked at a custom particle BC: CUSTOM_BASE + face for
 # a domain face, CUSTOM_BASE + 6 + 6 h + face for region handler h.
 DONE = -1
@@ -52,27 +54,43 @@ class PushResult(NamedTuple):
     n_pend: torch.Tensor      # 0-d int32: lanes parked at a remote face
 
 
+def particle_bcs(g: Grid):
+    """This rank's six particle face codes: the grid's own on an
+    undecomposed grid, ``grid.rank_particle_bc`` on a decomposed one."""
+    return rank_particle_bc(g, flat_rank(g)) if g.sharded else g.particle_bc
+
+
 def check_particle_bcs(g: Grid):
-    """Raise for what the one-device walk cannot do: decomposed grids, join
-    tables and remote faces (particle migration)."""
-    if g.sharded or g.face_partners is not None:
-        raise NotImplementedError(
-            "vpic_tpu_torch runs one device: decomposed grids and join "
-            "tables are not supported yet")
-    for face, bc in enumerate(g.particle_bc):
-        if bc == P_REMOTE:
-            raise NotImplementedError(
-                f"particle bc {bc} (remote) on face {face}: particle "
-                "migration needs a decomposed run")
+    """Raise for faces no walk can serve: a remote face on an undecomposed
+    grid (there is no rank to migrate to), and a P_REMOTE face with a rank
+    that has no partner in the join tables (its leavers would vanish; the
+    JAX package's initialize() refuses it too)."""
+    if not g.sharded:
+        for face, bc in enumerate(g.particle_bc):
+            if bc == P_REMOTE:
+                raise NotImplementedError(
+                    f"particle bc {bc} (remote) on face {face} of an "
+                    "undecomposed grid: migration needs a decomposed run")
+        return
+    if g.face_partners is not None:
+        for face, bc in enumerate(g.particle_bc):
+            bad = [r for r, p in enumerate(g.face_partners[face]) if p < 0]
+            if bc == P_REMOTE and bad:
+                raise ValueError(
+                    f"face {face} has particle bc P_REMOTE but ranks {bad} "
+                    "are unjoined in the domain graph: their leaving "
+                    "particles would be lost.  join_domain() every rank's "
+                    "face or set its particle BC first.")
 
 
 def has_walls(g: Grid, vbc=None) -> bool:
-    """True when a push on ``g`` needs each face's own rule: an absorbing
-    or custom domain face (a lane can die or park), an axis periodic on
-    one side only, or a per-voxel-face table."""
-    periodic = [bc == P_PERIODIC for bc in g.particle_bc]
+    """True when a push on ``g`` needs each face's own rule: an absorbing,
+    custom or remote face of this rank (a lane can die or park), an axis
+    periodic on one side only, or a per-voxel-face table."""
+    bcs = particle_bcs(g)
+    periodic = [bc == P_PERIODIC for bc in bcs]
     return vbc is not None or periodic[:3] != periodic[3:] or any(
-        bc not in (P_PERIODIC, REFLECT_PARTICLES) for bc in g.particle_bc)
+        bc not in (P_PERIODIC, REFLECT_PARTICLES) for bc in bcs)
 
 
 class Walls:
@@ -244,7 +262,8 @@ def accumulate_rho_p(rhof_flat, sp: SpeciesState, g: Grid, qsp):
 def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
                 pend, acc, rhob, max_streak: int, vbc=None):
     """The move_p streak walk (move_p.cc:216-353) over all lanes at once,
-    with every one-device face (push.py:361-601 of the JAX package).
+    with every face rule of this rank (push.py:361-601 of the JAX
+    package).
 
     pos/disp/coords/u are (x, y, z) triples of (N,) tensors; deposits are
     added to ``acc`` and absorbed charge to ``rhob`` in place.  ``vbc`` is
@@ -255,6 +274,7 @@ def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
     (alive, pend, acc, rhob); lanes still active after ``max_streak`` rounds
     get pend = UNFINISHED."""
     check_particle_bcs(g)
+    bcs = particle_bcs(g)
     px, py, pz = pos
     dpx, dpy, dpz = disp
     xi, yi, zi = coords
@@ -356,9 +376,14 @@ def streak_walk(g: Grid, qsp, w, pos, disp, coords, u, active, alive,
             coord = torch.where(inside, new_coord, coord)
             flip = inside
             for side, out_m in ((-1, out_lo), (1, out_hi)):
-                bc = g.axis_bc(ax, side, particles=True)
                 face = ax + (0 if side < 0 else 3)
-                if bc == P_PERIODIC:
+                bc = bcs[face]
+                if bc == P_REMOTE:
+                    # a neighbouring rank's face: the lane stays on it,
+                    # parked for migration with its remaining displacement
+                    pend = torch.where(out_m, face, pend)
+                    active = active & ~out_m
+                elif bc == P_PERIODIC:
                     coord = torch.where(out_m, n_ax if side < 0 else 1, coord)
                     flip = flip | out_m
                 elif bc == REFLECT_PARTICLES:
