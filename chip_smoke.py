@@ -209,9 +209,33 @@ Phases, each of which must pass (any failure exits non-zero):
      Phases 24-26 print per rank the transport, staged bytes, host syncs,
      ms/step (host clock around synchronize), launches and lanes migrated
      per step and the busy share over 5 profiled steps.
-``python3 chip_smoke.py --decomposed-only`` runs phases 1-2 and 24-27,
+ 28. the decomposed stochastic decks, two ranks on the one card:
+     (a) collisional reconnection at phase 19's 32^3 x 128 ppc, tau 5, on
+     (1, 2, 1), 20 steps (four firings): every staged lane kept, none
+     dropped, drift < 3e-2 (printed beside phase 19's), the 3-D WALLS
+     push once a step per rank, the 3-D kernel with remote faces against
+     its plain version on the lanes of a collision firing, move_p on
+     received lanes; per rank the collision stage's launches, device ms
+     and CUDA-event ms of a firing, ms/step, busy share and peak device
+     memory;
+     (b) the emission diode at its defaults on (2, 1, 1): the first step's
+     census equal to the one-domain run's on the card, the anode tally 0
+     after EMIT_QUIET steps and growing over EMIT_STEPS more, the 2-D
+     WALLS push once a step per rank, no lane dropped, the push kernel
+     against its plain version and child_langmuir card against CPU from
+     the same draws (move_p's aged walk against its plain walk);
+     (c) the runtime-injection hook (scripts/sharded_checks.injection_deck,
+     4096 aged lanes a step in a 32^3 box) on (1, 2, 1): the ranks'
+     lanes after the first step, gathered in global coordinates, equal the
+     one-domain run's on the card (a lane whose aged walk reaches a seam
+     parks on it, as vpic_tpu's does), and after 10 steps every lane kept;
+     (d) parallel.mesh.dryrun(8): harris (1, 8, 1) and the (2, 2, 2) 3-D
+     box on 8 ranks, the irregular join on 4, the decomposed reflux, the
+     surface emitter and the collisional deck on 2.
+``python3 chip_smoke.py --decomposed-only`` runs phases 1-2 and 24-28,
 with the one-domain sc08 drift of phase 26 from its own run of phase 23's
-deck; any other argument is refused.
+deck (phase 19's drift is then not run); any other argument is
+refused.
 Each phase from 18 on prints its seconds.  The kernel launch counts of
 each run are reset just before it and read just after it, and a kernel's
 entry in the kernels' line sums its runs' launches (field_beb's those of
@@ -266,6 +290,8 @@ SHARDED_STEPS = (200, 20, 50)
 SHARDED_CHECK_AT = 6            # harris 2-D's energies against one domain
 SHARDED_RESTART = (10, 10)      # checkpoint after 10 steps, 10 more
 SHARDED_RTOL, SHARDED_ATOL = 5e-4, 1e-7   # tests/test_sharded.py:45-46
+# phase 28c: the injection hook's box, its aged lanes a step, its steps
+INJECT_GRID, INJECT_LANES, INJECT_STEPS = 32, 4096, 10
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 
@@ -1467,7 +1493,8 @@ def stochastic_phases(torch, counters, card, results):
     """Phases 18-21: the collision ops, card against CPU and timed; the
     collisional reconnection deck at 32^3 x 128 ppc on the residency path;
     the emission diode; aged injection.  Adds the runs' launches to the
-    kernels' line entries of the kernels they ran."""
+    kernels' line entries of the kernels they ran; returns the
+    reconnection run's drift."""
     import vpic_tpu_torch as vt
     from vpic_tpu_torch import boundary_ops as BO
     from vpic_tpu_torch.models import emission, reconnection
@@ -1622,6 +1649,7 @@ def stochastic_phases(torch, counters, card, results):
           f"{100 * coll_dev / tau / step_dev:.1f} % of the device time a "
           f"step amortized ({card})")
     del sim, state, box, stage_in, step, prof
+    drift_recon = drift
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
     # --- phase 20: the emission diode at its defaults ---
@@ -1720,6 +1748,7 @@ def stochastic_phases(torch, counters, card, results):
           f"max abs err {err:.3e} (tolerance {SC.AGED_ATOL}); 1 move_p "
           "launch")
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return drift_recon
 
 
 class CountedRun:
@@ -1999,7 +2028,8 @@ def print_ranks(res, what, card):
               f"{r['launches']}{prof}")
 
 
-def sharded_phases(torch, counters, card, results, sc08_drift):
+def sharded_phases(torch, counters, card, results, sc08_drift,
+                   recon_drift=None):
     from vpic_tpu_torch.models import harris
     from vpic_tpu_torch.ops import fused_push as FP
     from vpic_tpu_torch.ops import fused_push3d as FP3
@@ -2149,6 +2179,101 @@ def sharded_phases(torch, counters, card, results, sc08_drift):
             fail(f"decomposed restart {what}: energies differ by {rel}")
     print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
+    # --- phase 28: the decomposed stochastic decks ---
+    from vpic_tpu_torch.models import emission
+    t_phase = time.perf_counter()
+    res = M.launch(SC.run_rank, 2, "cuda", args=(
+        "reconnection", dict(RECON, topology=(1, 2, 1)), RECON_STEPS, "cuda",
+        0, True, 5))
+    r0 = res[0]
+    print(f"run reconnection (1, 2, 1): 32^3 x 128 ppc, tau 5, on 2 ranks of "
+          f"one card, {RECON_STEPS} steps; staging {r0['build_s']:.1f} s, "
+          f"initialize() {r0['initialize_s']:.1f} s")
+    print_ranks(res, "reconnection", card)
+    checked(res, "reconnection (1, 2, 1)", RECON_STEPS, FP3.KERNEL)
+    one = "not run" if recon_drift is None else f"{recon_drift:.3e}"
+    print(f"  reconnection (1, 2, 1): drift {r0['drift']:.3e} (bound 3e-2) "
+          f"vs one domain (phase 19) {one}")
+    if r0["path"] != "push3d" or not r0["drift"] < 3e-2 or \
+            not np.isfinite(r0["e_end"]).all():
+        fail(f"reconnection (1, 2, 1): path {r0['path']}, drift "
+             f"{r0['drift']}")
+    for r in res:
+        c = r["collision"]
+        print(f"  reconnection rank {r['rank']}: the collision stage (3 T&A "
+              f"ops, one firing) {c['ms']:.3f} ms (CUDA events), device "
+              f"{c['device_ms']:.3f} ms in {c['launches']:.0f} launches "
+              f"(torch.profiler); peak device memory "
+              f"{r['peak_mib']:.1f} MiB ({card})")
+    add(res, kernels(res, FP3.KERNEL, "reconnection"))
+    print(f"phase 28a: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    sim = emission.build()
+    census = int(sim.make_step()(sim.initialize()).species[0].np)
+    del sim
+    n_em = EMIT_QUIET + EMIT_STEPS
+    res = M.launch(SC.run_rank, 2, "cuda", args=(
+        "emission", dict(topology=(2, 1, 1)), n_em, "cuda", EMIT_QUIET, True,
+        5, (1, EMIT_QUIET)))
+    r0 = res[0]
+    print(f"run emission (2, 1, 1): the diode at its defaults (32 x 8 cells) "
+          f"on 2 ranks of one card, {n_em} steps")
+    print_ranks(res, "emission", card)
+    first, quiet = r0["marks"][1], r0["marks"][EMIT_QUIET]
+    print(f"  emission (2, 1, 1): {first[0]} lanes after step 0 (one domain "
+          f"on the card: {census}), anode tally {quiet[1]} after "
+          f"{EMIT_QUIET} steps, {r0['tally']} after {n_em}; "
+          f"{(r0['lanes'][1] + r0['tally'] - quiet[0]) / EMIT_STEPS:.2f} "
+          f"lanes emitted and {(r0['tally'] - quiet[1]) / EMIT_STEPS:.2f} "
+          f"absorbed a step; {r0['dropped']} dropped, path {r0['path']}")
+    if first[0] != census or census == 0:
+        fail(f"emission (2, 1, 1): census {first[0]} vs one domain {census}")
+    if quiet[1] != 0 or not r0["tally"] > 0 or r0["dropped"] != 0:
+        fail(f"emission (2, 1, 1): tally {quiet[1]} after {EMIT_QUIET} "
+             f"steps, {r0['tally']} at the end, {r0['dropped']} dropped")
+    for r in res:
+        n = r["launches"]
+        if n[FP.KERNEL] != EMIT_STEPS or n[MP.KERNEL] < EMIT_STEPS or \
+                r["unfinished"]:
+            fail(f"emission (2, 1, 1): rank {r['rank']} launches {n} in "
+                 f"{EMIT_STEPS} steps, {r['unfinished']} unfinished")
+        e = r["emitter"]
+        print(f"  emission rank {r['rank']}: child_langmuir card == CPU with "
+              f"the same draws ({e['new']} new lanes; the aged walk on move_p"
+              f" vs its plain walk): max abs err {e['max_abs_err']:.3e}")
+    errs = kernels(res, FP.KERNEL, "emission")
+    errs[MP.KERNEL] = max([errs[MP.KERNEL]]
+                          + [r["emitter"]["max_abs_err"] for r in res])
+    add(res, errs)
+    print(f"phase 28b: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    n, m_lanes = INJECT_GRID, INJECT_LANES
+    one = SC.inject_rank("cuda", INJECT_STEPS, (1, 1, 1), n, m_lanes)
+    res = M.launch(SC.inject_rank, 2, "cuda", args=(
+        "cuda", INJECT_STEPS, (1, 2, 1), n, m_lanes))
+    try:
+        cmp = SC.compare_injected(one["first"], [r["first"] for r in res],
+                                  (1, 2, 1), n, 0.04 * 8 / n)
+    except AssertionError as e:
+        fail(f"runtime injection (1, 2, 1): {e}")
+    print(f"run runtime injection (1, 2, 1): {n}^3 box, {m_lanes} aged "
+          f"lanes a step through the hook, path {res[0]['path']}: after the "
+          f"first step the ranks' {cmp['lanes']} lanes equal one domain's on "
+          f"the card ({cmp['parked']} parked at a seam by their aged walk); "
+          f"after {INJECT_STEPS} steps {res[0]['total']} lanes (one domain "
+          f"{one['total']}), {res[0]['dropped']} dropped")
+    if res[0]["total"] != one["total"] or \
+            one["total"] != INJECT_STEPS * m_lanes or res[0]["dropped"]:
+        fail(f"runtime injection (1, 2, 1): {res[0]['total']} lanes vs "
+             f"{one['total']}")
+    print(f"phase 28c: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    M.dryrun(8, "cuda")
+    print(f"phase 28d: {time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
     args = sys.argv[1:]
@@ -2217,9 +2342,10 @@ def main():
         fail("a push kernel instance does not fit on an SM")
     results = {}
 
-    def sharded(sc08_drift):
-        # --- phases 24-27: decomposed runs, one process per rank ---
-        sharded_phases(torch, counters, card, results, sc08_drift)
+    def sharded(sc08_drift, recon_drift=None):
+        # --- phases 24-28: decomposed runs, one process per rank ---
+        sharded_phases(torch, counters, card, results, sc08_drift,
+                       recon_drift)
 
     if decomposed_only:
         from vpic_tpu_torch.scripts import deck_checks as DC
@@ -2231,7 +2357,7 @@ def main():
         print(json.dumps({k: {"launches": v["launches"],
                               "max_abs_err": v["max_abs_err"]}
                           for k, v in results.items()}))
-        print("partial run (phases 1-2 and 24-27): ok")
+        print("partial run (phases 1-2 and 24-28): ok")
         return 0
 
     # --- phase 3: 2-D kernel against its plain version ---
@@ -2507,11 +2633,11 @@ def main():
     io_phases(torch, counters, card)
 
     # --- phases 18-21: collisions, emission, aged injection ---
-    stochastic_phases(torch, counters, card, results)
+    recon_drift = stochastic_phases(torch, counters, card, results)
 
     # --- phases 22-23: the nine sample decks, sc08 at the demo size ---
     sc08_drift = deck_phases(torch, counters, card, results)
-    sharded(sc08_drift)
+    sharded(sc08_drift, recon_drift)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -70,12 +70,17 @@ def test_components_equal_jax(case, kind):
 
 
 def test_sharded_components_raise():
+    """A decomposed grid's scan is the packed (vox, face, valid) triple
+    (tests/test_torch_emitter_sharded.py holds it against vpic_tpu's); an
+    emitter made from it raises when prepared for a grid of another
+    topology."""
     sim = vt.Simulation(device="cpu")
     sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (8, 4, 4), (2, 1, 1))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ET.surface_components(sim.grid, sphere)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ET.child_langmuir(0, None, (np.zeros(1), np.zeros(1), np.ones(1)))
+    comps = ET.surface_components(sim.grid, sphere)
+    assert len(comps) == 3 and comps[0].shape[:3] == (2, 1, 1)
+    op = ET.child_langmuir(0, None, comps)
+    with pytest.raises(ValueError, match="topology"):
+        op.prepare("cpu", region3d(vt, device="cpu"))
 
 
 @pytest.mark.parametrize("m", [1, 7, 40, 64])

@@ -186,8 +186,12 @@ def test_local_mesh_refuses_collectives():
 
 def test_dryrun_decomposed_cases(capsys):
     """The decomposed smoke run (vpic_tpu/parallel/mesh.py:78-222's port):
-    harris (1, 4, 1), the irregular join (64 lanes kept) and the
-    decomposed reflux (128 kept) on Gloo ranks of the CPU."""
+    harris (1, 4, 1), the irregular join (64 lanes kept), the decomposed
+    reflux (128 kept), the surface emitter (lanes emitted) and the
+    collisional deck (lanes kept, energies finite) on Gloo ranks of the
+    CPU."""
     M.dryrun(4, "cpu")
     out = capsys.readouterr().out
-    assert "irregular-join ok" in out and "sharded-reflux ok" in out
+    for case in ("irregular-join ok", "sharded-reflux ok",
+                 "sharded-emitter ok", "sharded-collisional (2,1,1) ok"):
+        assert case in out

@@ -1,7 +1,8 @@
 """Decomposed decks on the port held to vpic_tpu's own tests' assertions,
 one Gloo rank per domain on the CPU: the pcomm round trip on (2, 2, 2)
-(tests/test_sharded.py:66-125) and lpi on (2, 2, 1) against one domain
-(tests/test_sample_decks.py:129-151)."""
+(tests/test_sharded.py:66-125), lpi on (2, 2, 1) against one domain
+(tests/test_sample_decks.py:129-151), and the dry run's (2, 2, 2) 3-D box
+(vpic_tpu/parallel/mesh.py:153-176)."""
 
 import numpy as np
 
@@ -90,3 +91,15 @@ def test_lpi_on_ranks_tracks_one_domain(tmp_path):
         np.testing.assert_allclose(e2[6:], e1[6:], rtol=5e-3)
         np.testing.assert_allclose(e2[[1, 5]], e1[[1, 5]], rtol=5e-2)
         assert np.isfinite(e2).all()
+
+
+def test_chart3d_case_on_eight_ranks(tmp_path):
+    """parallel.mesh.chart3d_case: one step of the 32^3 box on (2, 2, 2),
+    the 3-D push with home maps on every rank, the 512 lanes kept, the
+    summed energies finite and alike on every rank."""
+    from vpic_tpu_torch.parallel import mesh as M
+    res = launch_cpu(M.chart3d_case, 8, tmp_path, "cpu")
+    assert sum(r[0] for r in res) == 512
+    assert all(r[1] == "push3d" for r in res)
+    assert np.isfinite(res[0][2]).all()
+    assert all(np.array_equal(r[2], res[0][2]) for r in res)

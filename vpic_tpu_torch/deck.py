@@ -34,8 +34,9 @@ region tables; the step is the JAX package's shard-local step, with the
 halo exchanges of ``ops/fields`` and the migration rounds of
 ``boundary.boundary_p``, and ``energies`` sums over the ranks.  Residency
 is off there (lanes move between ranks every step), so a 3-D deck
-brick-sorts every step.  Emitters and collision ops on decomposed grids
-are not ported yet and raise.
+brick-sorts every step.  The collision ops run on each rank's lanes, and
+the emitters and the injection hook run before boundary_p's migration
+rounds, as the JAX package's sharded step orders them.
 """
 
 from __future__ import annotations
@@ -904,8 +905,9 @@ class Simulation:
         (on the general path after its sort_p), the push of every species
         with its sort, the parked lanes' boundary handling, the emitters
         and the user_particle_injection hook (after the push's handlers on
-        the kernel paths, before boundary_p on the general path, as the JAX
-        package runs them), accumulator unload, advance_b / advance_e /
+        the kernel paths of one domain, before boundary_p on the general
+        path and on a decomposed grid, as the JAX package runs them),
+        accumulator unload, advance_b / advance_e /
         advance_b (with the user current and field injection hooks; the
         fused field_beb kernel where it covers the deck, see
         field_advance), then the cleaners on their cadence.  The step
@@ -953,7 +955,6 @@ class Simulation:
         # on every path, vpic_tpu/deck.py:1328-1336, 1433-1440)
         parks = bool(handlers) or g.sharded or any(
             bc <= FIRST_CUSTOM_PBC for bc in g.particle_bc)
-        kernel_rounds = self.num_comm_round if g.sharded else 0
         mesh = mesh_of(g)
         collision_ops = tuple(self.collision_ops)
         u_collide = self.user_particle_collisions
@@ -961,7 +962,7 @@ class Simulation:
         u_pinject = self.user_particle_injection
         for em in emitters:
             if hasattr(em, "prepare"):
-                em.prepare(self.device)
+                em.prepare(self.device, g)
         # the collision ops' cadences: the residency step rebuckets before
         # the push on the steps one of them fires
         fire_every = [op.interval for op in collision_ops
@@ -987,9 +988,17 @@ class Simulation:
                 species = u_collide(species, f, g, step, generator())
             return list(species)
 
-        def emit(species, f, fcoef, acc, rhob, step):
+        def emit(species, f, fcoef, acc, rhob, step, walls=None):
             """The emitters, then the injection hook (advance.cc:58-60);
-            a new rhob they return goes into the state's."""
+            a new rhob they return goes into the state's.  Where boundary_p
+            runs after them, ``walls`` is the push's: the pend codes of the
+            slots dead now are set to DONE first, since new lanes go there
+            and the push kernels leave a dead slot's code unwritten."""
+            if not emitters and u_pinject is None:
+                return list(species), acc
+            if walls is not None:
+                for sp, pend in zip(species, walls.pends):
+                    pend.masked_fill_(~sp.live, P.DONE)
             out = rhob
             for em in emitters:
                 species, acc, out = em(species, f, fcoef, acc, out, g, step,
@@ -1031,6 +1040,19 @@ class Simulation:
                     self.migration["n_dropped"] + dropped
             return species, acc
 
+        def emit_and_park(species, f, fcoef, acc, rhob, step, walls, diag):
+            """The kernel paths after the push: on one domain the parked
+            lanes' handlers, then the emitters; on a decomposed grid the
+            emitters, then boundary_p with its migration rounds
+            (vpic_tpu/deck.py:1420-1440)."""
+            if g.sharded:
+                species, acc = emit(species, f, fcoef, acc, rhob, step,
+                                    walls)
+                return handle_parked(species, walls, acc, diag,
+                                     self.num_comm_round)
+            species, acc = handle_parked(species, walls, acc, diag, 0)
+            return emit(species, f, fcoef, acc, rhob, step)
+
         def sort_general(species, step):
             # --- sort (performance + collision partition) ---
             for k, spp in enumerate(sp_params):
@@ -1046,7 +1068,7 @@ class Simulation:
             species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                 species, fcoef, acc, g, qms, max_streak=max_streak,
                 walls=walls)
-            species, acc = emit(species, f, fcoef, acc, rhob, step)
+            species, acc = emit(species, f, fcoef, acc, rhob, step, walls)
             # --- boundary interaction (boundary_p x num_comm_round,
             #     advance.cc:73-101) ---
             species, acc = handle_parked(species, walls, acc, diag,
@@ -1062,12 +1084,9 @@ class Simulation:
                 species, fcoef, acc, g, qms, max_streak=max_streak,
                 walls=walls)
             # the parked lanes' handlers run once, as after the JAX
-            # package's outlier replay (pallas_push.py:1010-1017); on a
-            # decomposed grid with the migration rounds
-            species, acc = handle_parked(species, walls, acc, diag,
-                                         kernel_rounds)
-            species, acc = emit(species, f, fcoef, acc, rhob, step)
-            return species, acc, unfinished
+            # package's outlier replay (pallas_push.py:1010-1017)
+            return emit_and_park(species, f, fcoef, acc, rhob, step, walls,
+                                 diag) + (unfinished,)
 
         def sort_res(species):
             out = [FP3.brick_sort_p_home(sp, g, extent=sort_extents[k],
@@ -1087,10 +1106,8 @@ class Simulation:
                 species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                     species, fcoef, acc, g, qms, homes=homes,
                     max_streak=max_streak, walls=walls)
-                species, acc = handle_parked(species, walls, acc, diag,
-                                             kernel_rounds)
-                species, acc = emit(species, f, fcoef, acc, rhob, step)
-                return species, acc, unfinished
+                return emit_and_park(species, f, fcoef, acc, rhob, step,
+                                     walls, diag) + (unfinished,)
             # residency (vpic_tpu/deck.py:1195-1233, 1364-1419): the whole
             # path runs on the [0, E) extent slices, and its result goes
             # into the state's (``home``), also on a step where the
@@ -1223,6 +1240,22 @@ class Simulation:
         """The full step.  Each rank's process runs it on its own brick
         (the JAX package lifts the same shard-local step with shard_map)."""
         return self.make_advance()
+
+    def make_multi_step(self, n_sub: int) -> Callable[[SimState], SimState]:
+        """``n_sub`` steps of make_step() in one call: the JAX package's
+        make_multi_step (vpic_tpu/deck.py:1563-1583), which scans them into
+        one dispatch, as a plain loop (each step still launches its own
+        kernels).  The returned function's ``path`` and ``fields`` are the
+        step's."""
+        step = self.make_step()
+
+        def many(state: SimState) -> SimState:
+            for _ in range(n_sub):
+                state = step(state)
+            return state
+
+        many.path, many.fields = step.path, step.fields
+        return many
 
     def run(self, state: SimState = None, num_step: int = None,
             energies_file: str = None, checkpt_base: str = None,

@@ -497,27 +497,121 @@ def reflux_case(device="cuda", n_steps: int = 1):
     return int(state.species[0].np)
 
 
+def emitter_case(device="cuda"):
+    """One step of the emission diode decomposed (2, 1, 1), nx = 32, ny = 8
+    (vpic_tpu/parallel/mesh.py:147-157): each rank emits from its own
+    brick's cathode faces.  Returns the lanes this rank holds after the
+    step."""
+    from ..models import emission
+    sim = emission.build(emission.EmissionParams(topology=(2, 1, 1), nx=32,
+                                                 ny=8), device=device)
+    state = sim.make_step()(sim.initialize())
+    return int(state.species[0].np)
+
+
+def collisional_case(device="cuda", n_steps: int = 1):
+    """``n_steps`` steps of the collisional reconnection deck decomposed
+    (2, 1, 1), 16 x 8 x 1 cells, 8 ppc, three Takizuka-Abe ops firing
+    every step (vpic_tpu/parallel/mesh.py:209-222).  Returns (the lanes
+    the ranks hold, the lanes the deck staged, the energies every rank
+    sums)."""
+    from ..models import reconnection as RC
+    sim = RC.build(RC.ReconnectionParams(
+        nx=16, ny=8, nz=1, nppc=8, Lx=8.0, Ly=4.0, Lz=1.0,
+        topology=(2, 1, 1), tau_coll_interval=1), device=device)
+    state = sim.initialize()
+    step = sim.make_step()
+    for _ in range(n_steps):
+        state = step(state)
+    en = sim.energies(state)
+    if not bool(torch.isfinite(en).all()):
+        raise AssertionError("collisional (2, 1, 1): non-finite energies")
+    from ..ops.fields import all_sum
+    lanes = all_sum(torch.tensor(sum(int(sp.np) for sp in state.species),
+                                 dtype=torch.float64), sim.grid)
+    return (int(lanes), sum(st.count for st in sim.species),
+            en.double().cpu().numpy())
+
+
+def chart3d_case(device="cuda"):
+    """One step of a 32^3 periodic box of 512 lanes on a full (2, 2, 2)
+    decomposition, every axis decomposed (vpic_tpu/parallel/mesh.py:153-176,
+    where it runs the 3-D brick-chart kernel; here the 3-D push with home
+    maps, "push3d").  Returns (this rank's lanes, the path, the energies
+    every rank sums)."""
+    import numpy as np
+    from .. import deck as D
+    sim = D.Simulation(seed=2, device=device)
+    sim.define_units(1.0, 1.0)
+    n = 32
+    g = D.partition_periodic_box(0, 0, 0, 1, 1, 1, n, n, n, 2, 2, 2)
+    sim.define_timestep(0.6 * g.courant_length())
+    sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (n, n, n),
+                             topology=(2, 2, 2))
+    sim.define_material("vacuum", 1.0)
+    sim.define_field_array(damp=0.0)
+    el = sim.define_species("e", -1.0, 1.0, 8192, -1, 4, 1)
+    rng = np.random.default_rng(0)
+    for _ in range(512):
+        sim.inject_particle(el, *rng.uniform(0.01, 0.99, 3),
+                            *rng.normal(0, 0.3, 3), 1.0)
+    step = sim.make_step()
+    state = step(sim.initialize())
+    en = sim.energies(state)
+    if not bool(torch.isfinite(en).all()):
+        raise AssertionError("(2, 2, 2) 3-D: non-finite energies")
+    return int(state.species[0].np), step.path, en.double().cpu().numpy()
+
+
+def _two_rank_cases(device):
+    """The dry run's two-rank cases, one launch: the decomposed reflux, the
+    emitter and the collisional deck."""
+    return dict(reflux=reflux_case(device), emitter=emitter_case(device),
+                collisional=collisional_case(device))
+
+
 def _dryrun_rank(n: int, device):
     out = {"harris": harris_case(n, device)}
-    if n >= 4:
-        out["join"] = irregular_join_case(device)
+    if n == 8:
+        out["chart3d"] = chart3d_case(device)
     return out
 
 
 def dryrun(n: int, device="cuda") -> None:
-    """One decomposed step on ``n`` local ranks of each case the port runs
-    (vpic_tpu/parallel/mesh.py:78-222): harris (1, n, 1), the irregular
-    join (n >= 4) and the decomposed reflux (on 2 ranks).  The JAX
-    package's emitter and collisional cases are not ported yet."""
+    """One decomposed step on local ranks of each case the JAX package's
+    dry run has (vpic_tpu/parallel/mesh.py:78-222) but its 2-D brick
+    chart (not ported): harris (1, n, 1) on n ranks; for n >= 4 the
+    irregular join on 4; for n >= 8 the (2, 2, 2) 3-D box on 8; and on 2
+    the decomposed reflux, the surface emitter (2, 1, 1) and the
+    collisional deck (2, 1, 1).  Raises where a case fails its check: a
+    lane lost, nothing emitted, non-finite energies."""
     res = launch(_dryrun_rank, n, device, args=(n, str(device)))
     en = res[0]["harris"][1]
     print(f"dryrun({n}): ok, step={res[0]['harris'][0]}, energies={en}")
     if n >= 4:
-        kept = sum(r["join"] for r in res)
+        kept = sum(launch(irregular_join_case, 4, device,
+                          args=(str(device),)))
         if kept != 64:
             raise AssertionError(f"irregular join kept {kept} of 64 lanes")
         print(f"dryrun({n}): irregular-join ok")
-    kept = sum(launch(reflux_case, 2, device, args=(str(device),)))
+    if n >= 8:
+        r3 = [r["chart3d"] for r in res] if n == 8 else \
+            launch(chart3d_case, 8, device, args=(str(device),))
+        kept = sum(r[0] for r in r3)
+        if kept != 512:
+            raise AssertionError(f"(2, 2, 2) 3-D kept {kept} of 512 lanes")
+        print(f"dryrun({n}): (2,2,2) 3-D ok (path {r3[0][1]})")
+    two = launch(_two_rank_cases, 2, device, args=(str(device),))
+    kept = sum(r["reflux"] for r in two)
     if kept != 128:
         raise AssertionError(f"reflux kept {kept} of 128 lanes")
     print(f"dryrun({n}): sharded-reflux ok")
+    emitted = sum(r["emitter"] for r in two)
+    if not emitted > 0:
+        raise AssertionError("decomposed emitter emitted nothing")
+    print(f"dryrun({n}): sharded-emitter ok ({emitted} emitted)")
+    lanes, staged, en = two[0]["collisional"]
+    if lanes != staged:
+        raise AssertionError(f"collisional (2, 1, 1): {staged} lanes "
+                             f"staged, {lanes} held")
+    print(f"dryrun({n}): sharded-collisional (2,1,1) ok, energies={en}")

@@ -1,16 +1,25 @@
 """Decomposed runs and their checks, one function per rank: chip_smoke.py
-phases 24-27 launch them on the card through ``parallel.mesh.launch``, and
+phases 24-28 launch them on the card through ``parallel.mesh.launch``, and
 tests/test_torch_sharded*.py on the CPU at small sizes.
 
-``run_rank(deck, params, n_steps, ...)`` builds a deck (``harris`` or
-``sc08``, its ``topology`` in ``params``) on this rank, initializes it and
-runs ``n_steps``: the energies after ``check_at`` steps (every rank sums
-them), the timed rest with every kernel count set to 0 just before and read
-just after, particle conservation (the ranks' live lanes and dropped lanes
-summed), the mesh's traffic per step, and, where asked, the push kernel
-with this rank's remote faces against its plain version after a migration
-step, and move_p walking received lanes on against its plain walk.  It
-returns a dict of plain Python values and numpy arrays.
+``run_rank(deck, params, n_steps, ...)`` builds a deck (``harris``,
+``sc08``, ``reconnection`` or ``emission``, its ``topology`` in
+``params``) on this rank, initializes it and runs ``n_steps``: the
+energies after ``check_at`` steps (every rank sums them), the timed rest
+with every kernel count set to 0 just before and read just after, particle
+conservation (the ranks' live lanes and dropped lanes summed), the mesh's
+traffic per step, the lanes emitted and absorbed, and, where asked, the
+push kernel with this rank's remote faces against its plain version after
+a migration step (after a collision firing on a deck with collision ops),
+move_p walking received lanes on against its plain walk, and the
+emitter's call (its aged walk through move_p) on the card against the
+CPU.  On the card it times the collision stage of a firing.  It returns a
+dict of plain Python values and numpy arrays.
+
+``inject_rank(device, n_steps)`` runs the runtime-injection hook deck
+(tests/test_inject_reconnection.py:12-45, with a hook that draws the same
+lanes on every rank) and returns the global coordinates of the lanes this
+rank holds.
 
 The kernel checks hold PERF.md §2 row 3's WALLS tolerances: live masks,
 voxels and pend codes equal but for at most 1 lane in 1e5 at a face,
@@ -25,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from ..models import harris, sc08
+from ..models import emission, harris, reconnection, sc08
 from ..ops import field_fuse as FF
 from ..ops import fused_push as FP
 from ..ops import fused_push3d as FP3
@@ -34,7 +43,9 @@ from ..ops import move_p as MP
 from ..ops import push as P
 from ..parallel import mesh as M
 
-DECKS = dict(harris=(harris, "HarrisParams"), sc08=(sc08, "SC08Params"))
+DECKS = dict(harris=(harris, "HarrisParams"), sc08=(sc08, "SC08Params"),
+             reconnection=(reconnection, "ReconnectionParams"),
+             emission=(emission, "EmissionParams"))
 COUNTERS = {FP.KERNEL: FP, FP3.KERNEL: FP3, MP.KERNEL: MP, FF.KERNEL: FF}
 LANE_ATOL = 3e-5
 SUM_RTOL = 1e-5
@@ -212,17 +223,46 @@ def random_lanes(g, n: int, device, seed: int = 0, n_species: int = 2):
     return species, fcoef, [(-1.0, 1.0), (1.0, 25.0)][:n_species]
 
 
+def _tally(state, g) -> int:
+    """The deck's absorb_tally counts, summed over its keys and the
+    ranks."""
+    n = sum(int(v) for k, v in state.diag.items()
+            if k.startswith("absorb_tally/"))
+    return int(total(n, g))
+
+
+def collision_stage(sim, state):
+    """The deck's collision ops firing once on ``state``'s lanes (they
+    shuffle into new tensors, so the state is not changed): the species
+    after them."""
+    species, diag = list(state.species), dict(state.diag)
+    for op in sim.collision_ops:
+        if getattr(op, "has_diag", False):
+            species, diag = op(species, state.fields, sim.grid, 0,
+                               sim._generator, diag)
+        else:
+            species = op(species, state.fields, sim.grid, 0,
+                         sim._generator)
+    return species
+
+
 def run_rank(deck: str, params: dict, n_steps: int, device="cuda",
              check_at: int = 0, compare: bool = False,
-             profile_steps: int = 0) -> dict:
+             profile_steps: int = 0, marks=()) -> dict:
     """One rank of a decomposed run (see the module docstring).  The
-    returned dict: rank, transport, path, lanes (the ranks' total before
-    and after), dropped (the ranks' total), e0 / e_check / e_end (summed
-    energies), drift, and over the timed steps ms_step (host clock around
-    synchronize), launches (per kernel), migrated, staged_bytes and
-    host_syncs (per step); with ``compare`` the kernel checks, with
-    ``profile_steps`` the device busy share and launches of that many
-    more steps under torch.profiler."""
+    returned dict: rank, transport, path, loaded (the deck's staged
+    lanes), lanes (the ranks' total after initialize() and at the end),
+    dropped (the ranks' total), e0 / e_check / e_end (summed energies),
+    drift, marks ({k: (lanes, absorb tallies)} summed over the ranks after
+    each of the first ``check_at`` steps listed in ``marks``), tally (the
+    absorb tallies at the end), and over the timed steps ms_step (host
+    clock around synchronize), launches (per kernel), migrated,
+    staged_bytes and host_syncs (per step); on the card peak_mib (this
+    rank's peak device memory over the timed steps) and, for a deck with
+    collision ops, collision (launches, device ms and CUDA-event ms of one
+    firing of the stage); with ``compare`` the kernel checks, with
+    ``profile_steps`` the device busy share and launches of that many more
+    steps under torch.profiler."""
     m = M.current()
     t0 = time.perf_counter()
     sim = build(deck, device, **params)
@@ -233,16 +273,23 @@ def run_rank(deck: str, params: dict, n_steps: int, device="cuda",
     _sync(dev)
     t2 = time.perf_counter()
     out = dict(rank=M.rank_of(g), transport=m.transport if m else "local",
-               build_s=t1 - t0, initialize_s=t2 - t1)
+               build_s=t1 - t0, initialize_s=t2 - t1,
+               loaded=sum(st.count for st in sim.species))
     lanes0 = int(total(_lanes(state), g))
     e0 = sim.energies(state).double().cpu().numpy()
     step = sim.make_step()
     out["path"], out["fields"] = step.path, step.fields
-    for _ in range(check_at):
+    out["marks"] = {}
+    for k in range(check_at):
         state = step(state)
+        if k + 1 in marks:
+            out["marks"][k + 1] = (int(total(_lanes(state), g)),
+                                   _tally(state, g))
     e_check = sim.energies(state).double().cpu().numpy()
     n_timed = n_steps - check_at
     _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _reset()
     mig0, syncs0 = sim.migration["migrated"], sim.host_syncs
     staged0 = m.staged_bytes if m else 0
@@ -259,22 +306,34 @@ def run_rank(deck: str, params: dict, n_steps: int, device="cuda",
         host_syncs=(sim.host_syncs - syncs0) / per,
         staged_bytes=((m.staged_bytes if m else 0) - staged0) / per,
         unfinished=int(total(int(state.diag["unfinished"]), g)))
+    if dev.type == "cuda":
+        out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     e_end = sim.energies(state).double().cpu().numpy()
     out.update(e0=e0, e_check=e_check, e_end=e_end,
                drift=float(abs(e_end.sum() - e0.sum()) / e0.sum()),
                lanes=(lanes0, int(total(_lanes(state), g))),
-               dropped=int(total(int(sim.migration["n_dropped"]), g)))
+               dropped=int(total(int(sim.migration["n_dropped"]), g)),
+               tally=_tally(state, g))
+    if sim.collision_ops and dev.type == "cuda":
+        from . import cuda_ms, device_kernels
+        stage = lambda: collision_stage(sim, state)
+        kern = device_kernels(stage, 2)
+        out["collision"] = dict(
+            launches=sum(c for c, _ in kern.values()),
+            device_ms=sum(t for _, t in kern.values()),
+            ms=cuda_ms(stage, 3))
     if compare:
         qms = [(st.params.q, st.params.m) for st in sim.species]
         fcoef = I.load_interpolator(state.fields, g)
+        sps = (collision_stage(sim, state) if sim.collision_ops
+               else list(state.species))
         if step.path == "push2d":
-            sps = [FP.bucket_sort_p(sp, g) for sp in state.species]
+            sps = [FP.bucket_sort_p(sp, g) for sp in sps]
             out["push"] = compare_walls(FP.fused_push_multi,
                                         FP.fused_push_multi_ref, g, sps,
                                         fcoef, qms)
         else:
             kw = {}
-            sps = list(state.species)
             if step.path == "push3d":
                 srt = [FP3.brick_sort_p_home(sp, g) for sp in sps]
                 sps, kw["homes"] = [s[0] for s in srt], [s[1] for s in srt]
@@ -283,6 +342,10 @@ def run_rank(deck: str, params: dict, n_steps: int, device="cuda",
                                         fcoef, qms, **kw)
         out["move_p"] = compare_move(state.species[0], g,
                                      sim.species[0].params.q)
+        if sim.emitters and dev.type == "cuda":
+            from .stochastic_checks import compare_child_langmuir
+            err, new = compare_child_langmuir(sim, state, dev)
+            out["emitter"] = dict(max_abs_err=err, new=new)
     if profile_steps:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
@@ -301,6 +364,105 @@ def run_rank(deck: str, params: dict, n_steps: int, device="cuda",
                    busy=dev_ms / win_ms,
                    calls=sum(e.count for e in kern) / profile_steps)
     return out
+
+
+def injection_deck(device, topology=(1, 1, 1), n: int = 8, m: int = 4):
+    """tests/test_inject_reconnection.py:12-45's deck (an n^3 periodic unit
+    box, one species of charge -1e-6) with its hook: ``m`` aged lanes a
+    step through emitter.runtime_inject, drawn from a generator seeded by
+    the step, so every rank draws the same lanes (as a deck draws them
+    from sync_rng) and keeps those in its brick."""
+    from .. import deck as D
+    from .. import emitter as E
+    sim = D.Simulation(seed=0, device=device)
+    sim.define_units(1.0, 1.0)
+    sim.define_timestep(0.04 * 8 / n)
+    sim.define_periodic_grid((0, 0, 0), (1, 1, 1), (n, n, n), topology)
+    sim.define_material("vacuum", 1.0)
+    sim.define_field_array(damp=0.0)
+    sim.define_species("e", -1e-6, 1.0, max(2048, 16 * m), -1, 0, 1)
+
+    def injector(species, f, fcoef, acc, rhob, g, step, generator):
+        dev = rhob.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1000 + int(step))
+        r = lambda: torch.rand((m,), generator=gen, device=dev)
+        x, y, z = r(), r(), r()
+        u = 0.1 * torch.randn((3, m), generator=gen, device=dev)
+        sp, acc, rhob = E.runtime_inject(
+            species[0], g, acc, rhob, x, y, z, u[0], u[1], u[2],
+            torch.ones(m, device=dev), -1e-6, age=r(), update_rhob=True)
+        return [sp] + list(species[1:]), acc, rhob
+
+    sim.user_particle_injection = injector
+    return sim
+
+
+def global_lanes(sp, g) -> np.ndarray:
+    """The live lanes of ``sp`` on this rank as rows (x, y, z, ux, uy, uz,
+    w) in global coordinates (float64), sorted."""
+    from ..grid import flat_rank, local_corner
+    live = _host(sp.live)
+    xi, yi, zi = (_host(t)[live] for t in P.decode_voxel(sp.i, g))
+    x0, y0, z0 = local_corner(g, flat_rank(g))
+    pos = [o + (c - 1 + (_host(d)[live].astype(np.float64) + 1) * 0.5) * h
+           for o, c, d, h in ((x0, xi, sp.dx, g.dx), (y0, yi, sp.dy, g.dy),
+                              (z0, zi, sp.dz, g.dz))]
+    rows = np.stack(pos + [_host(getattr(sp, n))[live].astype(np.float64)
+                           for n in ("ux", "uy", "uz", "w")], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def inject_rank(device="cuda", n_steps: int = 10, topology=(1, 1, 1),
+                n: int = 8, m: int = 4) -> dict:
+    """The injection deck run ``n_steps`` (at least 1) on this rank: the
+    global lanes it holds after the first step (global_lanes: the first
+    hook's lanes, no push has moved them), the path, and after the run the
+    ranks' total lanes and dropped lanes."""
+    sim = injection_deck(device, topology, n, m)
+    state = sim.initialize()
+    step = sim.make_step()
+    state = step(state)
+    first = global_lanes(state.species[0], sim.grid)
+    for _ in range(n_steps - 1):
+        state = step(state)
+    sp = state.species[0]
+    return dict(first=first, path=step.path,
+                total=int(total(int(sp.np), sim.grid)),
+                dropped=int(total(int(sim.migration["n_dropped"]),
+                                  sim.grid)))
+
+
+def compare_injected(one, ranks, topology, n: int, dt: float,
+                     atol: float = 1e-9) -> dict:
+    """The lanes the ranks of ``topology`` hold after the injection deck's
+    first step (``ranks``: their global_lanes) against one domain's
+    (``one``), matched by momentum and weight (equal: the hook draws them
+    alike and no push has moved them yet).  Positions are equal to
+    ``atol`` (periodic in the unit box), but for the lanes whose aged walk
+    reached a face another rank owns: the walk parks them there and drops
+    the rest of the age's displacement, as vpic_tpu's does (ROADMAP Queue
+    3), so each lies on a seam plane and within |u| cvac dt of the one-
+    domain lane.  Returns the lanes compared and those parked."""
+    key = lambda a: a[np.lexsort(a[:, 3:7].T[::-1])]
+    a = key(one)
+    b = key(np.concatenate(ranks))
+    _check(a.shape == b.shape, f"{len(b)} lanes on the ranks, {len(a)} on "
+           "one domain")
+    _check(np.array_equal(a[:, 3:], b[:, 3:]), "momenta or weights differ")
+    d = b[:, :3] - a[:, :3]
+    d -= np.round(d)
+    off = (np.abs(d) > atol).any(axis=1)
+    seam = np.zeros(len(b), bool)
+    for ax in range(3):
+        if topology[ax] > 1:
+            c = b[:, ax] * topology[ax]
+            seam |= np.abs(c - np.round(c)) <= 1e-9 * n
+    reach = np.linalg.norm(a[:, 3:6], axis=1) * dt
+    bad = off & ~(seam & (np.linalg.norm(d, axis=1) <= reach * (1 + 1e-6)))
+    _check(not bad.any(), f"{int(bad.sum())} lanes differ from one "
+           f"domain's: max {np.abs(d[bad]).max() if bad.any() else 0}")
+    return dict(lanes=len(b), parked=int(off.sum()))
 
 
 def restart_rank(base: str, params: dict, n1: int, n2: int,
@@ -340,8 +502,10 @@ def remap_run(fbase_tag: str, params: dict, n2: int, device="cuda"):
 
 def conserved(res: list, what: str) -> None:
     """Raise unless a decomposed run kept every particle: the ranks' total
-    live lanes unchanged and none dropped."""
+    live lanes the deck's staged lanes and unchanged, and none dropped."""
     r = res[0]
+    _check(r["lanes"][0] == r["loaded"],
+           f"{what}: {r['loaded']} lanes staged, {r['lanes'][0]} loaded")
     _check(r["lanes"][0] == r["lanes"][1],
            f"{what}: {r['lanes'][0]} lanes became {r['lanes'][1]}")
     _check(r["dropped"] == 0, f"{what}: {r['dropped']} lanes dropped")

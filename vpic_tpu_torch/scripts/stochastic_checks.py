@@ -190,7 +190,7 @@ def compare_child_langmuir(sim, state, device, seed: int = 0):
                                   to(draws, dev))
         outs.append((out[k], acc, rhob))
     (a, acc_h, rhob_h), (b, acc_d, rhob_d) = outs
-    new = int((a.live & ~state.species[k].live).sum())
+    new = int((a.live & ~state.species[k].live.cpu()).sum())
     err = compare_lanes(a, b, LANE_ATOL, "child_langmuir", (acc_h, acc_d),
                         (rhob_h, rhob_d), WEIGHT_RTOL)
     return err, new
