@@ -6,10 +6,10 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. build: the seven kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
+  2. build: the eight kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
      move_p.cu, merge_p.cu, compact_block.cu with the compaction and the
-     block copy, mailbox.cu, field_beb.cu) built for sm_90a, one nvcc each,
-     started
+     block copy, mailbox.cu, field_beb.cu, graph_cond.cu) built for sm_90a,
+     one nvcc each, started
      together; prints ptxas' registers / spills / shared memory, and the
      push kernels' CUDA blocks per SM;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
@@ -103,7 +103,8 @@ Phases, each of which must pass (any failure exits non-zero):
      particle walls at +-x, 10 steps on the card: the 3-D kernel without
      home maps once a step, move_p once per handler run (boundary_p's
      num_comm_round + 1 runs), lanes absorbed; then the kernel against its
-     plain version on the lanes the run left;
+     plain version on the lanes the run left; 2 eager steps with no
+     synchronizing operation (so step_graph captures the general path);
  15. the deck runner: vpic_tpu_torch.__main__.main in process on the
      64^2 x 64 ppc harris deck, 200 steps with --energies and --checkpt
      ck:100, then --restore ck.100 to step 200 into a second energies
@@ -232,6 +233,29 @@ Phases, each of which must pass (any failure exits non-zero):
      (d) parallel.mesh.dryrun(8): harris (1, 8, 1) and the (2, 2, 2) 3-D
      box on 8 ranks, the irregular join on 4, the decomposed reflux, the
      surface emitter and the collisional deck on 2.
+ 29. the graphed step (vpic_tpu_torch/step_graph.py): step_graph.refusal of
+     every one-domain deck (lpi, dipole, waveguide and cygnus eager for
+     their hooks, the others captured) and of a decomposed harris; one
+     step graphed and one eager from one state (equal generator states)
+     on harris2d 64^2 x 64, harris3d 32^3 x 128, reconnection 32^3 x 128
+     tau 5 and the diode: lanes bit for bit, then 10 steps each way with
+     the fields to 5e-7 + 1e-5 max|a|; a rebucket forced under the IF node
+     of a 16^3 residency deck (one slack block a brick) equal to the eager
+     branch; 200 harris2d and 100 harris3d steps in one make_multi_step
+     after every cadence is captured: push and field_beb launches equal to
+     the steps, merges equal to the steps less the rebuckets, two IF
+     conditions a 3-D step, no synchronizing operation (sync debug mode
+     "error"), drift below 1e-3 from step 0, the state's tensors kept, and
+     in 10 profiled steps no kernel-launch call from the host, one
+     cudaGraphLaunch a step; ms/step, pushes/s, device busy share and
+     peak memory eager and graphed in turns (eager, graphed, graphed,
+     eager); 20 graphed reconnection steps from step 0 (every lane kept,
+     drift below 3e-2, the IF rebuckets counted) and its peak memory in
+     turns.
+The graphed steps (every one-domain deck but those four) count their
+launches by replay (step_graph): the counts are read after
+step_graph.settle(), and the residency step's host syncs are those of its
+eager warm-up steps (one a step), so phases 8 and 19 require that many.
 ``python3 chip_smoke.py --decomposed-only`` runs phases 1-2 and 24-28,
 with the one-domain sc08 drift of phase 26 from its own run of phase 23's
 deck (phase 19's drift is then not run); any other argument is
@@ -252,6 +276,7 @@ import os
 import sys
 import time
 import warnings
+import weakref
 
 import numpy as np
 
@@ -674,27 +699,53 @@ def synchronizing(torch, fn):
 
 
 def reset_counts(counters):
+    from vpic_tpu_torch import step_graph as SG
+    SG.settle()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
 
 
 def read_counts(counters):
+    """The counts, with the launches of the IF branches the graphed steps
+    replayed since the last read added (step_graph.settle, one read)."""
+    from vpic_tpu_torch import step_graph as SG
+    SG.settle()
     return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+_STEPS = weakref.WeakKeyDictionary()
+
+
+def step_of(sim):
+    """The deck's make_step(), made once per Simulation here, so a phase's
+    runs replay the graphs its earlier runs captured."""
+    if sim not in _STEPS:
+        _STEPS[sim] = sim.make_step()
+    return _STEPS[sim]
+
+
+# the steps of the last run_steps on a Simulation that ran eagerly: the
+# graphed step's warm-ups, or every step of an eager one (the residency
+# step's one host read is made by these only)
+EAGER = weakref.WeakKeyDictionary()
 
 
 def run_steps(torch, sim, state, n_steps, counters):
     """n_steps of the deck's step with every kernel count set to 0 just
     before and read just after; returns (state, seconds, launches)."""
-    step = sim.make_step()
+    step = step_of(sim)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     sim.host_syncs = 0
+    warm = getattr(step, "eager_steps", 0)
     t0 = time.perf_counter()
     for _ in range(n_steps):
         state = step(state)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    EAGER[sim] = (step.eager_steps - warm if step.graphed is True
+                  else n_steps)
     return state, elapsed, read_counts(counters)
 
 
@@ -991,7 +1042,7 @@ def wall_phases(torch, counters, card):
           f"synchronize); launches {launches}; field energy "
           f"{float(en[:6].sum()):.4e}, max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    step = sim.make_step()
+    step = step_of(sim)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     n_win = 20
@@ -1093,7 +1144,7 @@ def wall_phases(torch, counters, card):
 
     handlers = sim.pbc_handlers
     sim.pbc_handlers = {k: counting(h) for k, h in handlers.items()}
-    step = sim.make_step()
+    step = step_of(sim)
     for _ in range(n_win):
         state = step(state)
     sim.pbc_handlers = handlers
@@ -1226,7 +1277,22 @@ def wall_phases(torch, counters, card):
         FP3.fused_push3d_multi_ref, g, list(state.species),
         I.load_interpolator(state.fields, g), qms, vbc=sim._local_vbc())
     results["fused_push3d_walls"]["max_abs_err"] = max(err3w, err_g)
-    del sim, state
+    # the general path's eager step makes no synchronizing operation, so
+    # step_graph captures it (its run above was graphed)
+    eager = sim.make_advance()
+    box = {"state": state}
+
+    def two_steps():
+        for _ in range(2):
+            box["state"] = eager(box["state"])
+
+    syncs = synchronizing(torch, two_steps)
+    graphed = step_of(sim).graphed
+    print(f"general path: {len(syncs)} synchronizing operations in 2 eager "
+          f"steps (torch's sync debug mode); make_step().graphed {graphed}")
+    if syncs or graphed is not True:
+        fail(f"general path: {syncs[0].message if syncs else graphed}")
+    del sim, state, box, eager
 
     return results
 
@@ -1399,7 +1465,7 @@ def io_phases(torch, counters, card):
     sim = harris.build(p3)
     if not sim._residency_mode()[0]:
         fail("the 16^3 harris deck does not take the residency path")
-    step = sim.make_step()
+    step = step_of(sim)
     state = sim.initialize()
     for _ in range(10):
         state = step(state)
@@ -1444,7 +1510,7 @@ def io_phases(torch, counters, card):
     for dev in ("cuda", "cpu"):
         sim = shapes.build(device=dev)
         state = sim.initialize()
-        step = sim.make_step()
+        step = step_of(sim)
         beb0 = FF.launches
         inner = (slice(1, -1),) * 3
         inside = torch.from_numpy(sim._mat_ids["cmat"][inner] == 2).to(dev)
@@ -1588,9 +1654,9 @@ def stochastic_phases(torch, counters, card, results):
     if launches[RES.KERNEL] != RECON_STEPS - post:
         fail(f"reconnection: {launches[RES.KERNEL]} merges with {post} "
              f"rebuckets after the push in {RECON_STEPS} steps")
-    if sim.host_syncs != RECON_STEPS:
+    if sim.host_syncs != EAGER[sim]:
         fail(f"reconnection: {sim.host_syncs} host syncs in {RECON_STEPS} "
-             "steps")
+             f"steps, {EAGER[sim]} of them eager")
     if ptrs != [[getattr(sp, k).data_ptr() for k in FP3.LANE_FIELDS]
                 for sp in state.species]:
         fail("reconnection: the species tensors changed storage")
@@ -1605,7 +1671,7 @@ def stochastic_phases(torch, counters, card, results):
     results[RES.KERNEL]["launches"] += launches[RES.KERNEL]
     # one collision cycle under the profiler: launches and device time a
     # step, and the device's busy share against the host clock's ms/step
-    step = sim.make_step()
+    step = step_of(sim)
     while state.step % tau:
         state = step(state)
     box = {"state": state}
@@ -1675,7 +1741,7 @@ def stochastic_phases(torch, counters, card, results):
           f"within {SC.FIELD_RTOL} of their largest; 1 move_p launch")
     sim = emission.build()
     state = sim.initialize()
-    step = sim.make_step()
+    step = step_of(sim)
     key = [k for k in state.diag if k.startswith("absorb_tally/")][0]
     if step.path != "push2d":
         fail("emission does not take the 2-D kernel path")
@@ -1776,7 +1842,7 @@ class CountedRun:
 def profiled_steps(torch, sim, state, n):
     """(kernel launches a step, device ms a step, ms a step, busy share)
     over n more steps under torch.profiler, and the state after them."""
-    step = sim.make_step()
+    step = step_of(sim)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1877,7 +1943,7 @@ def deck_phases(torch, counters, card, results):
         except AssertionError as e:
             fail(f"{name} oracle on the card: {e}")
         sim, state = r["sim"], r["state"]
-        step = sim.make_step()
+        step = step_of(sim)
         n, L = run.steps, run.launches
         push = FP.KERNEL if step.path == "push2d" else FP3.KERNEL
         particles = bool(sim.species)
@@ -1967,7 +2033,7 @@ def deck_phases(torch, counters, card, results):
         fail(f"sc08 {DC.SC08_DEMO}: {e}")
     sim, state = r["sim"], r["state"]
     g = sim.grid
-    step = sim.make_step()
+    step = step_of(sim)
     L = run.launches
     if step.path != "general" or FP3.supports3d(g) or \
             L[FP3.KERNEL] != SC08_STEPS or L[FF.KERNEL] != SC08_STEPS or \
@@ -2084,7 +2150,7 @@ def sharded_phases(torch, counters, card, results, sc08_drift,
     t_phase = time.perf_counter()
     sim = harris.build(harris.HarrisParams())
     state = sim.initialize()
-    step = sim.make_step()
+    step = step_of(sim)
     for _ in range(SHARDED_CHECK_AT):
         state = step(state)
     e_one = sim.energies(state).double().cpu().numpy()
@@ -2275,6 +2341,231 @@ def sharded_phases(torch, counters, card, results, sc08_drift,
     print(f"phase 28d: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 29's runs through make_multi_step: harris 2-D's steps, harris3d's
+GRAPH_STEPS = {"harris2d": 200, "harris3d": 100}
+GRAPH_TURN = 50                 # steps a timing turn (eager, graphed, ...)
+GRAPH_RECON = 20                # reconnection steps graphed (four firings)
+EAGER_ONLY = {"lpi", "dipole", "waveguide", "cygnus"}   # their hooks
+
+
+def graph_phase(torch, counters, card, results):
+    """Phase 29: the graphed step (step_graph) against the eager one."""
+    from vpic_tpu_torch import step_graph as SG
+    from vpic_tpu_torch.models import harris
+    from vpic_tpu_torch.scripts import graph_checks as GC
+    t_phase = time.perf_counter()
+
+    # which decks are captured
+    refused = GC.refusals()
+    for name, why in refused.items():
+        print(f"graph refusal {name}: {why or 'none (captured)'}")
+    split = harris.build(harris.HarrisParams(topology=(1, 2, 1)))
+    why = SG.refusal(split)
+    print(f"graph refusal harris2d (1, 2, 1): {why}")
+    if {k for k, v in refused.items() if v} != EAGER_ONLY or \
+            not why or "decomposed" not in why:
+        fail(f"graph refusals {refused}, decomposed {why!r}")
+
+    # the forced rebucket under the IF node
+    sim = GC.build("residency16", "cuda")
+    if sim._residency_mode() != (True, 1):
+        fail(f"residency16: residency {sim._residency_mode()}")
+    res = GC.graphed_vs_eager(sim, sim.initialize(), 3,
+                              prepare=GC.force_rebucket)
+    print(f"graph residency16: forced rebucket under the IF node at step "
+          f"{res['at']}: rebuckets (graphed, eager) {res['rebuckets']}, "
+          f"lanes differing {res['lanes'] or 'none'}, fields "
+          f"{res['fields']:.3f} of the tolerance")
+    if res["rebuckets"] != (1, 1) or res["lanes"] or not res["fields"] < 1:
+        fail(f"forced rebucket: {res}")
+    results[SG.KERNEL]["max_abs_err"] = float(
+        abs(res["rebuckets"][0] - res["rebuckets"][1]))
+    del sim
+
+    for name in ("harris2d", "harris3d", "reconnection", "emission"):
+        t0 = time.perf_counter()
+        sim = GC.build(name, "cuda")
+        if sim.make_step().graphed is not True:
+            fail(f"{name}: the step is not graphed: "
+                 f"{sim.make_step().graphed}")
+        # one step graphed and one eager from one state, then 10 each way
+        res = GC.graphed_vs_eager(sim, sim.initialize(), 10)
+        print(f"graph {name}: one step graphed vs eager from one state at "
+              f"step {res['at']}: lanes differing {res['lanes'] or 'none'}"
+              f", rebuckets {res['rebuckets']}; 10 steps: fields at "
+              f"{res['fields']:.3f} of the tolerance (5e-7 + 1e-5 max|a|)")
+        if res["lanes"] or not res["fields"] < 1.0 or \
+                res["rebuckets"][0] != res["rebuckets"][1]:
+            fail(f"{name}: graphed step differs from the eager one: {res}")
+        if name in GRAPH_STEPS:
+            graph_run(torch, sim, name, GRAPH_STEPS[name], counters, card,
+                      results)
+        elif name == "reconnection":
+            graph_reconnection(torch, sim, counters, card)
+        del sim
+        print(f"graph {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
+
+
+def graph_run(torch, sim, name, n, counters, card, results):
+    """Phase 29's harris runs: n steps in one make_multi_step once every
+    cadence of them is captured, then eager and graphed in turns."""
+    from vpic_tpu_torch import step_graph as SG
+    from vpic_tpu_torch.ops import field_fuse as FF
+    from vpic_tpu_torch.ops import fused_push as FP
+    from vpic_tpu_torch.ops import fused_push3d as FP3
+    from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.scripts import graph_checks as GC
+    state = sim.initialize()
+    particles = sum(int(sp.np) for sp in state.species)
+    e0 = sim.energies(state).double().cpu().numpy()
+    many = sim.make_multi_step(n)
+    step = many.step
+    state = GC.warm_for(step, state, n)
+    ptrs = GC.storage(state)
+    reset_counts(counters)
+    sim.host_syncs = 0
+    r0 = int(state.diag.get("_res_rebuckets", torch.zeros(())))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t1 = time.perf_counter()
+            state = many(state)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+        except RuntimeError as e:
+            fail(f"{name}: a synchronizing operation in the graphed window: "
+                 f"{e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launches = read_counts(counters)
+    rebuckets = int(state.diag.get("_res_rebuckets", torch.zeros(()))) - r0
+    e1 = sim.energies(state).double().cpu().numpy()
+    drift = abs(e1.sum() - e0.sum()) / e0.sum()
+    push = FP.KERNEL if name == "harris2d" else FP3.KERNEL
+    merges = launches[RES.KERNEL]
+    print(f"graph {name}: {n} steps in one make_multi_step after "
+          f"{state.step - n} warm-up and capture steps ({step.captures} "
+          f"graphs, {step.eager_steps} eager): {sec * 1e3 / n:.3f} ms/step; "
+          f"launches {launches}; rebuckets {rebuckets}; host syncs "
+          f"{sim.host_syncs}; drift {drift:.3e} from step 0; 0 "
+          "synchronizing operations (sync debug mode error)")
+    if launches[push] != n or launches[FF.KERNEL] != n:
+        fail(f"{name}: push {launches[push]} and field_beb "
+             f"{launches[FF.KERNEL]} launches in {n} graphed steps")
+    if name == "harris3d" and (merges != n - rebuckets or
+                               launches[SG.KERNEL] != 2 * n):
+        fail(f"{name}: {merges} merges with {rebuckets} rebuckets and "
+             f"{launches[SG.KERNEL]} IF conditions in {n} steps")
+    if sim.host_syncs != 0 or not np.isfinite(e1).all() or \
+            not drift < 1e-3 or int(state.diag["unfinished"]) != 0:
+        fail(f"{name}: host syncs {sim.host_syncs}, drift {drift}, "
+             f"unfinished {int(state.diag['unfinished'])}")
+    if GC.storage(state) != ptrs:
+        fail(f"{name}: the graphed window moved the state's tensors")
+    if name == "harris3d":
+        results[SG.KERNEL]["launches"] += launches[SG.KERNEL]
+    # the profiled window: graph launches only
+    state, prof = GC.timed(step, state, 1, particles, profile_steps=10)
+    if prof["calls"]["kernel"] != 0 or prof["calls"]["graph"] != 10:
+        fail(f"{name}: host launch calls in 10 graphed steps "
+             f"{prof['calls']}")
+    print(f"graph {name}: 10 profiled graphed steps: host calls "
+          f"{prof['calls']} (no kernel launched from Python)")
+    # eager and graphed in turns, from the same evolving state
+    turns(torch, sim, step, state, particles, GRAPH_TURN, name, card)
+    if name == "harris3d":
+        results[SG.KERNEL]["ms"], state = prof_kernel_ms(
+            torch, step, state, "set_condition_kernel")
+
+
+def turns(torch, sim, step, state, particles, n, name, card):
+    """Eager, graphed, graphed, eager: n steps each from the same evolving
+    state (graph_checks.timed)."""
+    from vpic_tpu_torch.scripts import graph_checks as GC
+    eager = sim.make_advance()
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        state, t = GC.timed(eager if mode == "eager" else step, state, n,
+                            particles)
+        print(f"graph {name} {mode}: {t['ms']:.3f} ms/step, "
+              f"{t['pushes_per_s']:.4e} pushes/s, device busy "
+              f"{100 * t['busy_share']:.1f} % ({t['device_ms']:.4f} device "
+              f"ms a step over 10 profiled steps), peak memory allocated "
+              f"{t['peak_mib']:.1f} MiB, reserved {t['reserved_mib']:.1f} "
+              f"MiB, host launch calls in 10 steps {t['calls']} ({n} "
+              f"steps; {card})")
+    return state
+
+
+def graph_reconnection(torch, sim, counters, card):
+    """Phase 29's reconnection: GRAPH_RECON graphed steps from step 0, then
+    eager and graphed in turns."""
+    from vpic_tpu_torch.ops import residency as RES
+    state = sim.initialize()
+    n0 = [int(sp.np) for sp in state.species]
+    e0 = sim.energies(state).double().cpu().numpy()
+    many = sim.make_multi_step(GRAPH_RECON)
+    reset_counts(counters)
+    sim.relayouts = sim.host_syncs = 0
+    t1 = time.perf_counter()
+    state = many(state)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    launches = read_counts(counters)
+    step = many.step
+    e1 = sim.energies(state).double().cpu().numpy()
+    drift = abs(e1.sum() - e0.sum()) / e0.sum()
+    n1 = [int(sp.np) for sp in state.species]
+    post = int(state.diag["_res_rebuckets"])
+    print(f"graph reconnection: {GRAPH_RECON} steps from step 0 in one "
+          f"make_multi_step ({step.eager_steps} eager warm-ups, "
+          f"{step.captures} graphs): {sec * 1e3 / GRAPH_RECON:.3f} ms/step "
+          f"with the captures; rebuckets after the push {post}, under the IF "
+          f"node {step.taken['rebucket']} (merges there "
+          f"{step.taken['merge']}); before it {sim.relayouts}; host syncs "
+          f"{sim.host_syncs} (the eager steps'); launches {launches}; "
+          f"particles {n0} -> {n1}; drift {drift:.3e} (bound 3e-2)")
+    if n1 != n0 or not drift < 3e-2 or not np.isfinite(e1).all():
+        fail(f"graphed reconnection: particles {n0} -> {n1}, drift {drift}")
+    if step.taken["rebucket"] + step.taken["merge"] != \
+            GRAPH_RECON - step.eager_steps or \
+            launches[RES.KERNEL] != GRAPH_RECON - post or \
+            sim.host_syncs != step.eager_steps:
+        fail(f"graphed reconnection: branches {step.taken}, "
+             f"{launches[RES.KERNEL]} merges with {post} rebuckets, "
+             f"{sim.host_syncs} host syncs")
+    turns(torch, sim, step, state, sum(n0), 10, "reconnection", card)
+
+
+def host_read_ms(torch, n=2000):
+    """ms a host read of a 0-d bool on the card (the eager residency
+    step's decision), host clock over n reads."""
+    t = torch.zeros((), dtype=torch.bool, device="cuda")
+    bool(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        bool(t)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def prof_kernel_ms(torch, step, state, kernel):
+    """(device ms a launch of ``kernel`` over 10 graphed steps, from
+    torch.profiler, and the state after them)."""
+    from vpic_tpu_torch.scripts import profile_window
+    with profile_window() as prof:
+        for _ in range(10):
+            state = step(state)
+    hits = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and kernel in e.key]
+    n = sum(e.count for e in hits)
+    if not n:
+        fail(f"no {kernel} in 10 profiled graphed steps")
+    return sum(e.device_time_total for e in hits) / 1e3 / n, state
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--decomposed-only"]):
@@ -2299,6 +2590,7 @@ def main():
     from vpic_tpu_torch.ops import interp as I
     from vpic_tpu_torch.ops import move_p as MP
     from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch import step_graph as SG
     from vpic_tpu_torch.scripts import card as card_and_power
     from vpic_tpu_torch.scripts import cuda_ms, kernel_device_ms
     from vpic_tpu_torch.scripts import field_fuse_proto as RF
@@ -2314,9 +2606,9 @@ def main():
                 RES.KERNEL: (RES, "launches"), C.KERNEL: (C, "launches"),
                 C.COPY_KERNEL: (C, "copy_launches"),
                 C.MAILBOX_KERNEL: (C, "mailbox_launches"),
-                FF.KERNEL: (FF, "launches")}
+                FF.KERNEL: (FF, "launches"), SG.KERNEL: (SG, "launches")}
     sources = [FP.KERNEL, FP3.KERNEL, MP.KERNEL, RES.KERNEL, C.KERNEL,
-               C.MAILBOX_KERNEL, FF.KERNEL]
+               C.MAILBOX_KERNEL, FF.KERNEL, SG.KERNEL]
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
@@ -2423,7 +2715,7 @@ def main():
     results[FP.KERNEL]["launches"] = launches[FP.KERNEL]
     # 7 more steps (the first of them sorts): the lanes of the last push
     # before the next sort, where the most rounds take the global path
-    step = sim.make_step()
+    step = step_of(sim)
     for _ in range(7):
         state = step(state)
     max_err = max(max_err, compare_push(
@@ -2560,6 +2852,14 @@ def main():
         ms=merge_ms, plain_ms=merge_plain, bound_ms=bms, bound_by=bby,
         library_ms=None)
     del ker, sk, mk, mr, ka, kb, src, work, compact, species, fcoef
+    # the IF node's condition kernel: its plain version is the eager step's
+    # host read of the bool; it reads one byte
+    bms, bby = bound_ms(1, 0)
+    results[SG.KERNEL] = dict(
+        name=SG.KERNEL, route="cuda", source="vpic_tpu_torch/csrc/graph_cond.cu",
+        replaces="vpic_tpu/deck.py:1406", max_abs_err=None, ms=None,
+        plain_ms=host_read_ms(torch), bound_ms=bms, bound_by=bby,
+        library_ms=None, launches=0)
 
     # --- phase 7: small 3-D deck against the CPU plain path ---
     small_reference(torch, harris, harris.HarrisParams(
@@ -2596,14 +2896,20 @@ def main():
             launches[RES.KERNEL] == 0:
         fail(f"merge kernel launched {launches[RES.KERNEL]} times with "
              f"{rebuckets} rebuckets in {N_STEPS_3D} steps")
-    if sim.host_syncs != N_STEPS_3D:
-        fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps")
+    if sim.host_syncs != EAGER[sim]:
+        fail(f"{sim.host_syncs} host syncs in {N_STEPS_3D} steps, "
+             f"{EAGER[sim]} of them eager")
+    if launches[SG.KERNEL] != 2 * (N_STEPS_3D - EAGER[sim]) or \
+            launches[SG.KERNEL] == 0:
+        fail(f"{launches[SG.KERNEL]} IF conditions in {N_STEPS_3D} steps, "
+             f"{EAGER[sim]} of them eager")
+    results[SG.KERNEL]["launches"] += launches[SG.KERNEL]
     beb_main += trio_once_a_step(sim, launches, N_STEPS_3D, "3-D run")
     results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
     print("run 3-D: the species tensors kept their storage over the "
           f"{N_STEPS_3D} steps")
-    merge_calls, merge_dev, state = merge_per_step(torch, sim.make_step(),
+    merge_calls, merge_dev, state = merge_per_step(torch, step_of(sim),
                                                    state)
     print(f"run 3-D: merge kernel {merge_calls:.2f} launches and "
           f"{merge_dev:.5f} device ms a step (torch.profiler, 10 more "
@@ -2638,6 +2944,9 @@ def main():
     # --- phases 22-23: the nine sample decks, sc08 at the demo size ---
     sc08_drift = deck_phases(torch, counters, card, results)
     sharded(sc08_drift, recon_drift)
+
+    # --- phase 29: the graphed step ---
+    graph_phase(torch, counters, card, results)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

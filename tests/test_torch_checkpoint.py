@@ -165,7 +165,9 @@ def test_modify_and_checksum(tmp_path):
         == (123, 7, 2)
     state = sim.initialize()
     assert CK.checksum(state) == CK.checksum(state)
-    assert CK.checksum(sim.make_step()(state)) != CK.checksum(state)
+    # the step updates the state's tensors in place: take the sum first
+    before = CK.checksum(state)
+    assert CK.checksum(sim.make_step()(state)) != before
 
 
 def test_residency_diag_keys_match_jax(tmp_path):

@@ -97,9 +97,11 @@ def test_quota_checkpoints_and_stops(tmp_path):
     base = str(tmp_path / "ck")
     _, state = CLI.main([str(deck), "--device", "cpu", "--quota", "0",
                          "--checkpt", base])
-    assert state.step == 1
+    # run() checks the quota after each chunk, the deck's status_interval
+    # (4) steps, as vpic_tpu's does
+    assert state.step == 4
     data = np.load(f"{base}.quota.npz")
-    assert int(data["step"]) == 1
+    assert int(data["step"]) == 4
 
 
 def test_remap_and_unknown_deck(tmp_path):

@@ -428,7 +428,10 @@ def test_harris3d_on_card_matches_cpu(cuda, residency):
     e_gpu = sg.energies(gpu).double().cpu().numpy()
     assert np.abs(e_cpu - e_gpu).max() / e_cpu.sum() < 1e-6
     assert int(gpu.diag["unfinished"]) == 0
-    assert sg.host_syncs == (10 if residency else 0)
+    # run() steps the graphed step: the residency decision is read on the
+    # host by its two eager warm-up steps (steps 0 and 1, each the first
+    # of its cadence); the other eight replay the IF nodes
+    assert sg.host_syncs == (2 if residency else 0)
     for a, b in zip(cpu.species, gpu.species):
         assert int(a.live.sum()) == int(b.live.sum())
 

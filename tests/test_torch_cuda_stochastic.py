@@ -26,6 +26,7 @@ import vpic_tpu_torch.ops.fused_push as FP
 import vpic_tpu_torch.ops.fused_push3d as FP3
 import vpic_tpu_torch.ops.move_p as MP
 import vpic_tpu_torch.ops.residency as RES
+from vpic_tpu_torch import step_graph as SG
 from vpic_tpu_torch.models import emission, reconnection
 from vpic_tpu_torch.scripts import stochastic_checks as SC
 
@@ -98,9 +99,13 @@ def test_reconnection_residency_step_on_card(cuda):
     sim.host_syncs = sim.relayouts = 0
     for _ in range(7):
         state = step(state)
+    # the merges under the graphed steps' IF nodes count once settled;
+    # only the eager warm-up steps read the decision on the host
+    SG.settle()
     post = int(state.diag["_res_rebuckets"])
     assert FP3.launches == 7 and sim.relayouts == 3
-    assert RES.launches == 7 - post and sim.host_syncs == 7
+    assert RES.launches == 7 - post
+    assert sim.host_syncs == step.eager_steps == 3
     assert [sp.dx.data_ptr() for sp in state.species] == ptrs
     assert [int(sp.np) for sp in state.species] == n0
     assert int(state.diag["unfinished"]) == 0

@@ -21,11 +21,16 @@ from the Simulation's ``torch.Generator``, made at initialize().
 
 Host-side staging (particle injection, region rasterization) runs in numpy
 at double precision exactly like the JAX package, so the same deck and seed
-give bit-equal initial particle and field arrays in both packages.  The 2-D
-step never reads the device: the sort and cleaner cadences are decisions on
-the host-int ``state.step``.  The 3-D residency step reads one bool per step
-(rebucket or merge, the JAX package's ``lax.cond``), counted in
-``Simulation.host_syncs``; a graph-safe step must remove it.
+give bit-equal initial particle and field arrays in both packages.  The
+step's cadence decisions (sorts, cleaners, collision firings, the residency
+relayout) are made on the host from the host-int ``state.step`` and form its
+``Cadence``.  The step is graph-safe: every tensor it carries from step to
+step keeps its storage (the accumulator is allocated once, new sorts and
+diag counts are copied into the state's tensors), so ``step_graph`` can
+capture it as CUDA graphs, one per cadence.  The 3-D residency step's
+rebucket-or-merge (the JAX package's ``lax.cond``) is then two conditional
+nodes on a device bool; run eagerly it reads that bool, one host read a
+step, counted in ``Simulation.host_syncs``.
 
 Decomposed grids (a topology other than (1, 1, 1)) run one process per
 rank (``parallel/mesh.py``): every rank runs the whole deck, stages the
@@ -44,12 +49,13 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field as dfield
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import boundary as B
+from . import step_graph as SG
 from .grid import (ABSORB_PARTICLES, FIRST_CUSTOM_PBC, P_PERIODIC,
                    PERIODIC, REFLECT_PARTICLES, Grid, cartesian_partners,
                    flat_rank, local_corner, partition_absorbing_box,
@@ -64,8 +70,8 @@ from .ops import move_p as MP
 from .ops import push as P
 from .ops import residency as RES
 from .parallel.mesh import mesh_of
-from .state import (FieldState, MaterialCoeffs, SimState, SpeciesParams,
-                    SpeciesState)
+from .state import (FIELD_NAMES, SPECIES_NAMES, FieldState, MaterialCoeffs,
+                    SimState, SpeciesParams, SpeciesState)
 
 everywhere = lambda x, y, z: True
 
@@ -73,6 +79,39 @@ everywhere = lambda x, y, z: True
 # (field_advance.h:152-160)
 MAT_ID_ORDER = ("ematx", "ematy", "ematz", "nmat",
                 "fmatx", "fmaty", "fmatz", "cmat")
+
+
+class Cadence(NamedTuple):
+    """The host-side decisions of one step, from its step number and the
+    residency flag: the 2-D bucket sort, the general path's per-species
+    sort_p, each collision op's firing, the residency relayout before the
+    push (the first step, a restore without the layout, a firing step), and
+    the three cleaners.  Steps with equal cadences run the same kernels on
+    the same tensors, so one CUDA graph serves them (step_graph)."""
+    sort: bool
+    sorts: Tuple[bool, ...]
+    fire: Tuple[bool, ...]
+    relayout: bool
+    clean_e: bool
+    clean_b: bool
+    sync: bool
+
+
+def _keep(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``src``'s values in ``dst``'s storage (nothing to do where they are
+    one tensor already); returns dst."""
+    if src is not dst and not (src.data_ptr() == dst.data_ptr()
+                               and src.shape == dst.shape
+                               and src.stride() == dst.stride()):
+        dst.copy_(src)
+    return dst
+
+
+def _keep_species(home: SpeciesState, sp: SpeciesState) -> SpeciesState:
+    """``sp`` in ``home``'s tensors (lanes and np); returns home."""
+    for n in SPECIES_NAMES:
+        _keep(getattr(home, n), getattr(sp, n))
+    return home
 
 
 @dataclass
@@ -911,14 +950,15 @@ class Simulation:
         advance_b (with the user current and field injection hooks; the
         fused field_beb kernel where it covers the deck, see
         field_advance), then the cleaners on their cadence.  The step
-        updates the state's field tensors in place (rhob keeps the
-        absorbed charge across steps) and
-        returns the new SimState.  The residency step updates the species
-        tensors in place too, on both devices: the merge writes into them
-        and a rebucket copies its sort into them (also on the steps a
-        collision op shuffles the lanes into new tensors), so they are the
-        same storage after every step.  The other paths' sorts return new
-        species tensors.
+        updates the state's tensors in place, on both devices, and returns
+        a SimState that holds them: the fields (rhob keeps the absorbed
+        charge across steps), the species (the push kernels write them,
+        the residency merge writes into them, and a sort, a rebucket, a
+        collision op's shuffle or a plain version's new tensors are copied
+        into them) and the diag tensors (counts added in place), so every
+        tensor a step carries to the next keeps its storage and the step
+        can be captured as a CUDA graph (step_graph).  The accumulator is
+        allocated here, once, and zeroed every step.
 
         "push2d" (nz == 1): a bucket sort every pallas_sort_interval steps
         and the 2-D push kernel (fused_push_multi).  "push3d": with
@@ -929,7 +969,10 @@ class Simulation:
         the bricks do not tile): sort_p on each species' sort_interval,
         fused_push3d_multi without home maps, boundary_p with its
         num_comm_round handler runs.  The returned function's ``path`` names
-        the path and its ``fields`` the field advance (field_advance)."""
+        the path, its ``fields`` the field advance (field_advance), its
+        ``cadence(step, diag)`` the step's Cadence, and its ``capture``
+        (None unless step_graph is capturing the step) takes the residency
+        decision's two branches as conditional graph nodes."""
         self._check_device()
         g = self.grid
         path, sortK = self._path()
@@ -965,8 +1008,22 @@ class Simulation:
                 em.prepare(self.device, g)
         # the collision ops' cadences: the residency step rebuckets before
         # the push on the steps one of them fires
-        fire_every = [op.interval for op in collision_ops
-                      if getattr(op, "interval", 0) > 0]
+        fire_every = [getattr(op, "interval", 0) for op in collision_ops]
+        acc0 = torch.zeros((g.nv, 12), dtype=torch.float32,
+                           device=self.device)
+
+        def cadence(step: int, diag) -> Cadence:
+            fire = tuple(k > 0 and step % k == 0 for k in fire_every)
+            return Cadence(
+                sort=path == "push2d" and step % sortK == 0,
+                sorts=tuple(path == "general" and spp.sort_interval > 0
+                            and step % spp.sort_interval == 0
+                            for spp in sp_params),
+                fire=fire,
+                relayout=res_on and (not diag["_res_valid"] or any(fire)),
+                clean_e=ce > 0 and step % ce == 0,
+                clean_b=cb > 0 and step % cb == 0,
+                sync=sy > 0 and step % sy == 0)
 
         def generator():
             if self._generator is None:
@@ -1053,15 +1110,15 @@ class Simulation:
             species, acc = handle_parked(species, walls, acc, diag, 0)
             return emit(species, f, fcoef, acc, rhob, step)
 
-        def sort_general(species, step):
+        def sort_general(species, cad):
             # --- sort (performance + collision partition) ---
-            for k, spp in enumerate(sp_params):
-                if spp.sort_interval > 0 and step % spp.sort_interval == 0:
+            for k in range(len(species)):
+                if cad.sorts[k]:
                     species[k] = P.sort_p(species[k])
             return species
 
         def push_general(species, step, f, fcoef, acc, diag, rhob, home,
-                         relayout):
+                         cad):
             # the 3-D kernel without home maps (its plain version, advance_p
             # per species, on the CPU)
             walls = P.Walls(rhob, vbc) if walled else None
@@ -1075,10 +1132,12 @@ class Simulation:
                                          self.num_comm_round)
             return species, acc, unfinished
 
-        def push2(species, step, f, fcoef, acc, diag, rhob, home, relayout):
-            if step % sortK == 0:
-                species = [FP.bucket_sort_p(sp, g, extent=sort_extents[k])
-                           for k, sp in enumerate(species)]
+        def push2(species, step, f, fcoef, acc, diag, rhob, home, cad):
+            if cad.sort:
+                # sorted into the state's tensors, which the kernel pushes
+                species = [_keep_species(h, FP.bucket_sort_p(
+                    sp, g, extent=sort_extents[k]))
+                    for k, (h, sp) in enumerate(zip(home, species))]
             walls = P.Walls(rhob, vbc) if walled else None
             species, acc, unfinished = FP.fused_push_multi(
                 species, fcoef, acc, g, qms, max_streak=max_streak,
@@ -1094,15 +1153,18 @@ class Simulation:
                    for k, sp in enumerate(species)]
             return [o[0] for o in out], [o[1] for o in out]
 
-        def push3(species, step, f, fcoef, acc, diag, rhob, home, relayout):
+        def push3(species, step, f, fcoef, acc, diag, rhob, home, cad):
             nsp = len(species)
             walls = P.Walls(rhob, vbc) if walled else None
+            home_maps = [diag[f"_chart_home{k}"] for k in range(nsp)]
             if not res_on:
+                # sorted into the state's tensors and home maps
                 for k in range(nsp):
-                    species[k], diag[f"_chart_home{k}"] = \
-                        FP3.brick_sort_p_home(species[k], g,
-                                              extent=sort_extents[k])
-                homes = [diag[f"_chart_home{k}"] for k in range(nsp)]
+                    sp, hm = FP3.brick_sort_p_home(species[k], g,
+                                                   extent=sort_extents[k])
+                    species[k] = _keep_species(home[k], sp)
+                    _keep(home_maps[k], hm)
+                homes = home_maps
                 species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                     species, fcoef, acc, g, qms, homes=homes,
                     max_streak=max_streak, walls=walls)
@@ -1116,11 +1178,12 @@ class Simulation:
             sp_full = home
             species = [RES.slice_species(sp, res_exts[k])
                        for k, sp in enumerate(species)]
-            if not diag["_res_valid"] or relayout:
+            if cad.relayout:
                 self.relayouts += 1
                 species, homes = sort_res(species)
-            else:
-                homes = [diag[f"_chart_home{k}"] for k in range(nsp)]
+                for hm, h in zip(home_maps, homes):
+                    _keep(hm, h)
+            homes = home_maps
             species, acc, emits, obx, ores, unfinished = \
                 FP3.fused_push3d_multi(species, fcoef, acc, g, qms,
                                        homes=homes, max_streak=max_streak,
@@ -1134,27 +1197,40 @@ class Simulation:
             compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
                 obx, homes_cat, res_spid, res_usable, free_j, g)
             misplaced = RES.any_misplaced(species, emits, homes, g)
-            # both branches write into the state's extent slices, so the
-            # species tensors stay the same storage from step to step
+            # both branches write into the state's extent slices, np and
+            # home maps, so they keep their storage from step to step
             dst = [RES.slice_species(sp, res_exts[k])
                    for k, sp in enumerate(sp_full)]
-            # the step's one host read: rebucket (emitted lanes are still
-            # resident, so nothing is lost) or merge
-            self.host_syncs += 1
-            if bool(overflow | (ores > 0) | misplaced):
-                species, homes = sort_res(species)
-                species = [RES.copy_species(d, s)
-                           for d, s in zip(dst, species)]
-                diag["_res_rebuckets"] = diag["_res_rebuckets"] + 1
+
+            def rebucket():
+                # emitted lanes are still resident, so nothing is lost
+                sorted_sp, new_homes = sort_res(species)
+                for d, s, sF in zip(dst, sorted_sp, sp_full):
+                    RES.copy_species(d, s)
+                    _keep(sF.np, s.np)
+                for hm, h in zip(home_maps, new_homes):
+                    hm.copy_(h)
+                diag["_res_rebuckets"].add_(1)
+
+            def merge():
+                out = RES.merge_p(species, emits, compact, starts_j, a_j,
+                                  dst)
+                for o, sF in zip(out, sp_full):
+                    _keep(sF.np, o.np)
+
+            rebuild = overflow | (ores > 0) | misplaced
+            if advance.capture is None:
+                # the step's one host read
+                self.host_syncs += 1
+                (rebucket if bool(rebuild) else merge)()
             else:
-                species = RES.merge_p(species, emits, compact, starts_j, a_j,
-                                      dst)
-            species = [sF.replace(np=sE.np)
-                       for sE, sF in zip(species, sp_full)]
-            for k in range(nsp):
-                diag[f"_chart_home{k}"] = homes[k]
+                # captured: each branch under a conditional node
+                with advance.capture.branch(rebuild, "rebucket"):
+                    rebucket()
+                with advance.capture.branch(~rebuild, "merge"):
+                    merge()
             diag["_res_valid"] = True
-            return species, acc, unfinished
+            return list(sp_full), acc, unfinished
 
         push = dict(push2d=push2, push3d=push3, general=push_general)[path]
 
@@ -1162,20 +1238,19 @@ class Simulation:
             f = state.fields
             species = list(state.species)
             step = state.step
+            cad = cadence(step, state.diag)
             fcoef = I.load_interpolator(f, g)
-            acc = torch.zeros((g.nv, 12), dtype=torch.float32,
-                              device=f.ex.device)
+            acc = acc0.zero_()
             diag = dict(state.diag)
             if path == "general":
-                species = sort_general(species, step)
+                species = sort_general(species, cad)
             if collision_ops or u_collide is not None:
                 species = collide(species, f, step, diag)
-            relayout = any(step % k == 0 for k in fire_every)
             if species:
                 species, acc, unfinished = push(
                     species, step, f, fcoef, acc, diag, f.rhob.view(-1),
-                    state.species, relayout)
-                diag["unfinished"] = diag["unfinished"] + unfinished
+                    state.species, cad)
+                diag["unfinished"].add_(unfinished)
             F.clear_jf(f)
             I.unload_accumulator(f, acc, g)
             F.synchronize_jf(f, g)
@@ -1184,22 +1259,34 @@ class Simulation:
 
             f = trio(f, step)
 
-            if ce > 0 and step % ce == 0:
+            if cad.clean_e:
                 clean_e(f, species)
-            if cb > 0 and step % cb == 0:
+            if cad.clean_b:
                 clean_b(f)
-            if sy > 0 and step % sy == 0:
+            if cad.sync:
                 F.synchronize_tang_e_norm_b(f, g)
             if mesh is not None:
                 # the collectives' device reads (gloo-staged copies, the
                 # migration counts) are the step's host syncs too
                 self.host_syncs += mesh.host_syncs - self._mesh_syncs
                 self._mesh_syncs = mesh.host_syncs
-            return SimState(fields=f, species=tuple(species), step=step + 1,
-                            diag=diag, rng=state.rng)
+            # everything the step carries to the next, in the state's
+            # tensors
+            for h, sp in zip(state.species, species):
+                _keep_species(h, sp)
+            if f is not state.fields:
+                for n in FIELD_NAMES:
+                    _keep(getattr(state.fields, n), getattr(f, n))
+            for k, v in state.diag.items():
+                if isinstance(v, torch.Tensor):
+                    diag[k] = _keep(v, diag[k])
+            return SimState(fields=state.fields, species=state.species,
+                            step=step + 1, diag=diag, rng=state.rng)
 
         advance.path = path
         advance.fields = trio_label
+        advance.cadence = cadence
+        advance.capture = None
         return advance
 
     def field_advance(self):
@@ -1237,25 +1324,29 @@ class Simulation:
         return plain, "plain: " + "; ".join(why)
 
     def make_step(self) -> Callable[[SimState], SimState]:
-        """The full step.  Each rank's process runs it on its own brick
-        (the JAX package lifts the same shard-local step with shard_map)."""
-        return self.make_advance()
+        """The full step, the JAX package's jitted step: on the card the
+        step captured as CUDA graphs (step_graph.GraphedStep), unless
+        step_graph.refusal names a reason, and then the eager step of
+        make_advance.  Each rank's process runs it on its own brick (the
+        JAX package lifts the same shard-local step with shard_map).  The
+        returned function's ``graphed`` is True or "eager: <every
+        reason>", beside its ``path`` and ``fields``."""
+        advance = self.make_advance()
+        why = SG.refusal(self)
+        if why is None:
+            return SG.GraphedStep(self, advance)
+        advance.graphed = "eager: " + why
+        return advance
 
     def make_multi_step(self, n_sub: int) -> Callable[[SimState], SimState]:
-        """``n_sub`` steps of make_step() in one call: the JAX package's
-        make_multi_step (vpic_tpu/deck.py:1563-1583), which scans them into
-        one dispatch, as a plain loop (each step still launches its own
-        kernels).  The returned function's ``path`` and ``fields`` are the
-        step's."""
-        step = self.make_step()
-
-        def many(state: SimState) -> SimState:
-            for _ in range(n_sub):
-                state = step(state)
-            return state
-
-        many.path, many.fields = step.path, step.fields
-        return many
+        """``n_sub`` steps of make_step() in one call, the JAX package's
+        make_multi_step (vpic_tpu/deck.py:1563-1583, one dispatch of a
+        lax.scan): n_sub graph replays in the order of the steps' cadences,
+        with no kernel launched from Python and no device read once each
+        cadence is captured, or the eager step n_sub times on a deck
+        step_graph.refusal names.  Carries ``path``, ``fields`` and
+        ``graphed``."""
+        return SG.multi(self.make_step(), n_sub)
 
     def run(self, state: SimState = None, num_step: int = None,
             energies_file: str = None, checkpt_base: str = None,
@@ -1268,12 +1359,16 @@ class Simulation:
         state's line first), a checkpoint ``{checkpt_base}.{step}`` every
         ``checkpt_interval`` steps, and a checkpoint tagged "quota" when
         the wall clock passes ``quota_s`` seconds, which ends the run.
-        The steps run one at a time, so every diagnostic and checkpoint
-        step is landed on; all of them run between steps, and the loop
-        reads nothing from the device but at those steps.  On a decomposed
+        The steps run in chunks of make_multi_step, as the JAX package's
+        run (vpic_tpu/deck.py:1585-1625): the gcd of status_interval and
+        checkpt_interval (else min(num_step, 100)), so every diagnostic and
+        checkpoint step ends a chunk; a start off the chunk grid (a
+        restore) runs single steps up to it.  The diagnostics run between
+        chunks, and the loop reads nothing from the device but at those
+        steps.  The quota is checked after every chunk.  On a decomposed
         grid every rank runs the loop (the dumps and checkpoints are
         collective), rank 0 prints and writes the energies, and the quota
-        is rank 0's clock, shared with the others every step."""
+        is rank 0's clock, shared with the others after every chunk."""
         import time
         from . import checkpoint as CK
         from . import dump as DU
@@ -1282,14 +1377,22 @@ class Simulation:
         if state is None:
             state = self.initialize()
         n = num_step if num_step is not None else self.num_step
+        intervals = [v for v in (self.status_interval, checkpt_interval)
+                     if v]
+        chunk = math.gcd(*intervals) if intervals else min(max(n, 1), 100)
         step_fn = self.make_step()
+        many_fn = SG.multi(step_fn, chunk)
         prof = Profile()
         t0 = time.time()
         if energies_file:
             DU.dump_energies(self, state, energies_file, append=False)
         while state.step < n:
-            with prof.tic("advance"):
-                state = step_fn(state)
+            k = state.step
+            # align to the chunk grid (a restore may start between)
+            todo = min(chunk - k % chunk, n - k)
+            with prof.tic("advance", todo):
+                state = many_fn(state) if todo == chunk else \
+                    SG.multi(step_fn, todo)(state)
             k = state.step
             if self.status_interval and k % self.status_interval == 0:
                 if self.device.type == "cuda":

@@ -15,16 +15,41 @@ only; without it a machine with no CUDA card raises.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
+import time
 
 import torch
 
 WINDOWS = 3
-# torch.profiler on the H100 now and then records no device event in a
+# torch.profiler on the H100 now and then recorded no device event in a
 # window (seen in phase 9 and 10 windows and in the one-launch tests):
 # such a window, or one without the kernel asked for, is profiled again,
 # at most this many times in all.
 PROFILE_TRIES = 3
+# Kineto keeps only the device activities that fall inside its capture
+# window, [the profiler's start, its stop] on the host's clock, and
+# converts the card's timestamps to that clock.  A window of a few
+# microsecond launches right after the start sits within the conversion's
+# error of the edge, and all of it can be dropped.  So every window begins
+# and ends with the card idle for this long.
+PROFILE_PAD_S = 0.005
+
+
+@contextlib.contextmanager
+def profile_window():
+    """torch.profiler over the block, CPU and CUDA activities, with the
+    card idle for PROFILE_PAD_S on each side of the work inside it (the
+    block's work is synchronized before the window closes); yields the
+    profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
 
 
 def device(cpu: bool) -> torch.device:
@@ -76,19 +101,15 @@ def device_kernels(fn, n: int, setup=None) -> dict:
     torch.profiler's device events over n calls after one warm-up call.
     With ``setup``, each call is preceded by setup() inside the window: its
     kernels are in the result too, so read the call's own by name."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     if setup is not None:
         setup()
     fn()
-    torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with torch.profiler.profile(activities=acts) as prof:
+        with profile_window() as prof:
             for _ in range(n):
                 if setup is not None:
                     setup()
                 fn()
-            torch.cuda.synchronize()
         got = {e.key: (e.count / n, e.device_time_total / 1e3 / n)
                for e in prof.key_averages() if e.device_type.name == "CUDA"}
         if got:

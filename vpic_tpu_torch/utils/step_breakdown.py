@@ -1,7 +1,7 @@
 """Where the time of one harris step goes on the card.
 
     python -m vpic_tpu_torch.utils.step_breakdown [--deck harris2d|harris3d]
-        [nx nppc]
+        [--graphed] [nx nppc]
 
 Builds the harris deck on the GPU -- 2-D 64^2 x 64 ppc by default, or with
 ``--deck harris3d`` the 3-D residency deck at bench.py's widths (32^3 x 128
@@ -22,8 +22,12 @@ ppc, L = 16) -- and prints three things, each as one JSON line:
   of the same lanes, made before the call and outside its time;
 * ``step``: ms per step of the real step (host clock around synchronize),
   the device's busy share of that time from torch.profiler (kernel time
-  summed / wall time), kernel launches per step, field_beb launches per
-  step and, in 3-D, rebuckets, merges and host syncs over the window;
+  summed / wall time), kernel launches per step, the host's
+  ``cudaGraphLaunch`` calls and kernel-launch calls per step, field_beb
+  launches per step and, in 3-D, rebuckets, merges and host syncs over the
+  window.  The step is the eager one (``make_advance``), or with
+  ``--graphed`` the graphed one (``make_step``, ``step_graph``; every
+  cadence of the windows captured before them);
 * ``kernels``: the kernels that took the most device time in that window.
 """
 
@@ -44,6 +48,8 @@ from ..ops import fused_push3d as FP3
 from ..ops import interp as I
 from ..ops import push as P
 from ..ops import residency as RES
+from ..scripts import graph_checks as GC
+from .. import step_graph as SG
 
 REPS = 50
 
@@ -208,6 +214,8 @@ def main(argv):
     ap = argparse.ArgumentParser(prog="step_breakdown")
     ap.add_argument("--deck", choices=("harris2d", "harris3d"),
                     default="harris2d")
+    ap.add_argument("--graphed", action="store_true",
+                    help="time the graphed step instead of the eager one")
     ap.add_argument("nx", nargs="?", type=int)
     ap.add_argument("nppc", nargs="?", type=float)
     args = ap.parse_args(argv)
@@ -232,10 +240,17 @@ def main(argv):
 
     # the real step, then a profiled window of it
     state = sim.initialize()
-    step = sim.make_step()
     n = 64
-    for _ in range(8):
-        state = step(state)
+    if args.graphed:
+        step = sim.make_step()
+        if step.graphed is not True:
+            raise SystemExit(f"step_breakdown: the step is not graphed: "
+                             f"{step.graphed}")
+        state = GC.warm_for(step, state, 2 * n)
+    else:
+        step = sim.make_advance()
+        for _ in range(8):
+            state = step(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -243,6 +258,7 @@ def main(argv):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
+    SG.settle()
     reb0 = int(state.diag["_res_rebuckets"]) if three else 0
     RES.launches = 0
     FF.launches = 0
@@ -255,6 +271,8 @@ def main(argv):
             state = step(state)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / n
+    SG.settle()
+    calls = GC.host_launches(prof)
     kernels = [(e.key, e.device_time_total / 1e3 / n, e.count / n)
                for e in prof.key_averages()
                if e.device_time_total > 0 and e.device_type.name == "CUDA"]
@@ -264,7 +282,9 @@ def main(argv):
         "ms_per_step": wall_ms, "ms_per_step_profiled": prof_ms,
         "device_busy_ms_per_step": busy,
         "device_busy_share": busy / prof_ms if prof_ms else None,
-        "kernels_per_step": n_kernels,
+        "kernels_per_step": n_kernels, "graphed": bool(args.graphed),
+        "graph_launches_per_step": calls["graph"] / n,
+        "host_kernel_launches_per_step": calls["kernel"] / n,
         "field_beb_per_step": FF.launches / n,
         "particles": sum(int(sp.np) for sp in state.species)}
     if three:
