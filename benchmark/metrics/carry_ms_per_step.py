@@ -1,0 +1,10 @@
+"""``carry_ms_per_step``: device milliseconds a step in the step's
+``carry`` stage: the closing copies into the state's tensors (``_keep``).  From the program's stage maps laid over the
+traced window's device records (``benchmark/stages.py``); the energies and
+restores between repeats left out."""
+
+from benchmark import stages
+
+
+def read(run):
+    return stages.stage_ms(run, "carry")

@@ -777,8 +777,8 @@ def merge_per_step(torch, step, state, n=10):
         for _ in range(n):
             state = step(state)
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and "merge_kernel" in e.key]
+    from vpic_tpu_torch.scripts import device_averages
+    hits = [e for e in device_averages(prof) if "merge_kernel" in e.key]
     return (sum(e.count for e in hits) / n,
             sum(e.device_time_total for e in hits) / 1e3 / n, state)
 
@@ -1052,8 +1052,8 @@ def wall_phases(torch, counters, card):
             state = step(state)
         torch.cuda.synchronize()
         win_ms = (time.perf_counter() - t0) * 1e3 / n_win
-    kern = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    from vpic_tpu_torch.scripts import device_averages
+    kern = device_averages(prof)
     busy = sum(e.device_time_total for e in kern) / 1e3 / n_win
     push_dev, move_dev = (sum(e.device_time_total for e in kern
                               if name in e.key) / 1e3 / n_win
@@ -1686,7 +1686,8 @@ def stochastic_phases(torch, counters, card, results):
     with torch.profiler.profile(activities=acts) as prof:
         cycle()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    from vpic_tpu_torch.scripts import device_averages
+    evs = device_averages(prof)
     step_launches = sum(e.count for e in evs) / tau
     step_dev = sum(e.device_time_total for e in evs) / 1e3 / tau
     torch.cuda.synchronize()
@@ -1784,7 +1785,8 @@ def stochastic_phases(torch, counters, card, results):
         for _ in range(10):
             box["state"] = step(box["state"])
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    from vpic_tpu_torch.scripts import device_averages
+    evs = device_averages(prof)
     print(f"run emission: 32 x 8 cells, {EMIT_STEPS} steps after "
           f"{EMIT_QUIET} (lanes after step 0: {first}; anode tally 0 until "
           f"step {EMIT_QUIET}), {elapsed * 1e3 / EMIT_STEPS:.3f} ms/step "
@@ -1852,8 +1854,8 @@ def profiled_steps(torch, sim, state, n):
             state = step(state)
         torch.cuda.synchronize()
         win_ms = (time.perf_counter() - t0) * 1e3 / n
-    kern = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    from vpic_tpu_torch.scripts import device_averages
+    kern = device_averages(prof)
     busy = sum(e.device_time_total for e in kern) / 1e3 / n
     return (sum(e.count for e in kern) / n, busy, win_ms, busy / win_ms,
             state)
@@ -2554,12 +2556,11 @@ def host_read_ms(torch, n=2000):
 def prof_kernel_ms(torch, step, state, kernel):
     """(device ms a launch of ``kernel`` over 10 graphed steps, from
     torch.profiler, and the state after them)."""
-    from vpic_tpu_torch.scripts import profile_window
+    from vpic_tpu_torch.scripts import device_averages, profile_window
     with profile_window() as prof:
         for _ in range(10):
             state = step(state)
-    hits = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and kernel in e.key]
+    hits = [e for e in device_averages(prof) if kernel in e.key]
     n = sum(e.count for e in hits)
     if not n:
         fail(f"no {kernel} in 10 profiled graphed steps")

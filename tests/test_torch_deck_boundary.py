@@ -23,6 +23,7 @@ import vpic_tpu as vj
 import vpic_tpu_torch as vt
 from vpic_tpu import boundary_ops as BOJ
 from vpic_tpu_torch import boundary_ops as BOT
+from vpic_tpu_torch import step_graph
 from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
 from vpic_tpu_torch.utils import profile
 
@@ -230,4 +231,38 @@ def test_profile_timers_and_trace(tmp_path):
     with profile.trace(str(tmp_path)) as p:
         torch.ones(64).cumsum(0)
     assert len(p.key_averages()) > 0
-    assert "traceEvents" in json.load(open(tmp_path / "trace.json"))
+    doc = json.load(open(tmp_path / "trace.json"))
+    assert "traceEvents" in doc
+    # no graph replayed: no stage track
+    assert not [e for e in doc["traceEvents"]
+                if e.get("tid") == profile.STAGE_TID]
+
+    # the stage track: a replay's map over the device records the trace
+    # holds (two kernels added to the CPU trace as the card would write
+    # them), logged as a profiled replay logs it
+    stage_map = (profile.Run("advance_p", "k", ((0, "fused_push2d_kernel"),)),
+                 profile.Run("field_advance", "k", ((0, "field_beb"),)))
+    kernels = [{"ph": "X", "cat": "kernel", "name": n, "pid": 0, "tid": 7,
+                "ts": t, "dur": 5.0}
+               for n, t in (("fused_push2d_kernel(Push2dArgs)", 1.0),
+                            ("field_beb_grid_kernel(BebArgs)", 8.0))]
+    with profile.trace(str(tmp_path)) as p:
+        real = p.export_chrome_trace
+
+        def export(path):
+            real(path)
+            with open(path) as fh:
+                d = json.load(fh)
+            d["traceEvents"].extend(kernels)
+            with open(path, "w") as fh:
+                json.dump(d, fh)
+
+        p.export_chrome_trace = export
+        step_graph.replay_log.add(stage_map)
+        torch.ones(64).cumsum(0)
+    track = [e for e in json.load(open(tmp_path / "trace.json"))[
+        "traceEvents"] if e.get("tid") == profile.STAGE_TID
+        and e["ph"] == "X"]
+    assert [(e["name"], e["ts"], e["dur"]) for e in track] == [
+        ("advance_p", 1.0, 5.0), ("field_advance", 8.0, 5.0)]
+    step_graph.replay_log.clear()

@@ -70,6 +70,7 @@ from .ops import move_p as MP
 from .ops import push as P
 from .ops import residency as RES
 from .parallel.mesh import mesh_of
+from .utils import profile as PF
 from .state import (FIELD_NAMES, SPECIES_NAMES, FieldState, MaterialCoeffs,
                     SimState, SpeciesParams, SpeciesState)
 
@@ -960,6 +961,19 @@ class Simulation:
         can be captured as a CUDA graph (step_graph).  The accumulator is
         allocated here, once, and zeroed every step.
 
+        Every operation of the step lies in one stage of
+        utils.profile.STAGES, in the step's order: load_interpolator,
+        sort_p (the 2-D bucket sort, the 3-D relayout or brick sort, the
+        general path's sorts), collision, advance_p (the accumulator's
+        zeroing, the push, the parked lanes' handlers, the emitters),
+        residency_plan, residency_exchange (the rebucket or merge),
+        unload_accumulator (with the current hook), field_advance,
+        clean_div, carry (the copies into the state's tensors); on the
+        2-D and residency paths the collision ops run before the sort.
+        The step calls utils.profile.marks' marker as each stage starts:
+        eagerly under a profiler a ``vpic.<stage>`` range, while captured
+        the graph's stage map (step_graph._Capture.stage), else nothing.
+
         "push2d" (nz == 1): a bucket sort every pallas_sort_interval steps
         and the 2-D push kernel (fused_push_multi).  "push3d": with
         residency, the brick sort runs once (and again on a rebucket) and
@@ -1118,34 +1132,41 @@ class Simulation:
             return species
 
         def push_general(species, step, f, fcoef, acc, diag, rhob, home,
-                         cad):
+                         cad, mark):
             # the 3-D kernel without home maps (its plain version, advance_p
             # per species, on the CPU)
+            mark("advance_p")
+            acc.zero_()
             walls = P.Walls(rhob, vbc) if walled else None
             species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                 species, fcoef, acc, g, qms, max_streak=max_streak,
                 walls=walls)
+            diag["unfinished"].add_(unfinished)
             species, acc = emit(species, f, fcoef, acc, rhob, step, walls)
             # --- boundary interaction (boundary_p x num_comm_round,
             #     advance.cc:73-101) ---
-            species, acc = handle_parked(species, walls, acc, diag,
-                                         self.num_comm_round)
-            return species, acc, unfinished
+            return handle_parked(species, walls, acc, diag,
+                                 self.num_comm_round)
 
-        def push2(species, step, f, fcoef, acc, diag, rhob, home, cad):
+        def push2(species, step, f, fcoef, acc, diag, rhob, home, cad,
+                  mark):
             if cad.sort:
                 # sorted into the state's tensors, which the kernel pushes
+                mark("sort_p")
                 species = [_keep_species(h, FP.bucket_sort_p(
                     sp, g, extent=sort_extents[k]))
                     for k, (h, sp) in enumerate(zip(home, species))]
+            mark("advance_p")
+            acc.zero_()
             walls = P.Walls(rhob, vbc) if walled else None
             species, acc, unfinished = FP.fused_push_multi(
                 species, fcoef, acc, g, qms, max_streak=max_streak,
                 walls=walls)
+            diag["unfinished"].add_(unfinished)
             # the parked lanes' handlers run once, as after the JAX
             # package's outlier replay (pallas_push.py:1010-1017)
             return emit_and_park(species, f, fcoef, acc, rhob, step, walls,
-                                 diag) + (unfinished,)
+                                 diag)
 
         def sort_res(species):
             out = [FP3.brick_sort_p_home(sp, g, extent=sort_extents[k],
@@ -1153,23 +1174,28 @@ class Simulation:
                    for k, sp in enumerate(species)]
             return [o[0] for o in out], [o[1] for o in out]
 
-        def push3(species, step, f, fcoef, acc, diag, rhob, home, cad):
+        def push3(species, step, f, fcoef, acc, diag, rhob, home, cad,
+                  mark):
             nsp = len(species)
             walls = P.Walls(rhob, vbc) if walled else None
             home_maps = [diag[f"_chart_home{k}"] for k in range(nsp)]
             if not res_on:
                 # sorted into the state's tensors and home maps
+                mark("sort_p")
                 for k in range(nsp):
                     sp, hm = FP3.brick_sort_p_home(species[k], g,
                                                    extent=sort_extents[k])
                     species[k] = _keep_species(home[k], sp)
                     _keep(home_maps[k], hm)
                 homes = home_maps
+                mark("advance_p")
+                acc.zero_()
                 species, acc, _, _, _, unfinished = FP3.fused_push3d_multi(
                     species, fcoef, acc, g, qms, homes=homes,
                     max_streak=max_streak, walls=walls)
+                diag["unfinished"].add_(unfinished)
                 return emit_and_park(species, f, fcoef, acc, rhob, step,
-                                     walls, diag) + (unfinished,)
+                                     walls, diag)
             # residency (vpic_tpu/deck.py:1195-1233, 1364-1419): the whole
             # path runs on the [0, E) extent slices, and its result goes
             # into the state's (``home``), also on a step where the
@@ -1179,19 +1205,24 @@ class Simulation:
             species = [RES.slice_species(sp, res_exts[k])
                        for k, sp in enumerate(species)]
             if cad.relayout:
+                mark("sort_p")
                 self.relayouts += 1
                 species, homes = sort_res(species)
                 for hm, h in zip(home_maps, homes):
                     _keep(hm, h)
             homes = home_maps
+            mark("advance_p")
+            acc.zero_()
             species, acc, emits, obx, ores, unfinished = \
                 FP3.fused_push3d_multi(species, fcoef, acc, g, qms,
                                        homes=homes, max_streak=max_streak,
                                        residency=True, walls=walls)
+            diag["unfinished"].add_(unfinished)
             # the parked lanes before the exchange, as the JAX package's
             # replay (deck.py:1340-1380); a lane a handler moves out of its
             # home brick is misplaced, and the step rebuckets
             species, acc = handle_parked(species, walls, acc, diag, 0)
+            mark("residency_plan")
             free_j = RES.block_counts(species, emits)
             homes_cat = torch.cat(homes) if nsp > 1 else homes[0]
             compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
@@ -1219,6 +1250,7 @@ class Simulation:
                     _keep(sF.np, o.np)
 
             rebuild = overflow | (ores > 0) | misplaced
+            mark("residency_exchange")
             if advance.capture is None:
                 # the step's one host read
                 self.host_syncs += 1
@@ -1230,35 +1262,49 @@ class Simulation:
                 with advance.capture.branch(~rebuild, "merge"):
                     merge()
             diag["_res_valid"] = True
-            return list(sp_full), acc, unfinished
+            return list(sp_full), acc
 
         push = dict(push2d=push2, push3d=push3, general=push_general)[path]
 
         def advance(state: SimState) -> SimState:
+            mark = PF.marks(advance.capture)
+            out = stages(state, mark)
+            mark(None)
+            return out
+
+        def stages(state: SimState, mark) -> SimState:
             f = state.fields
             species = list(state.species)
             step = state.step
             cad = cadence(step, state.diag)
+            mark("load_interpolator")
             fcoef = I.load_interpolator(f, g)
-            acc = acc0.zero_()
             diag = dict(state.diag)
-            if path == "general":
+            if path == "general" and any(cad.sorts):
+                mark("sort_p")
                 species = sort_general(species, cad)
             if collision_ops or u_collide is not None:
+                mark("collision")
                 species = collide(species, f, step, diag)
             if species:
-                species, acc, unfinished = push(
-                    species, step, f, fcoef, acc, diag, f.rhob.view(-1),
-                    state.species, cad)
-                diag["unfinished"].add_(unfinished)
+                species, acc = push(
+                    species, step, f, fcoef, acc0, diag, f.rhob.view(-1),
+                    state.species, cad, mark)
+            else:
+                mark("advance_p")
+                acc = acc0.zero_()
+            mark("unload_accumulator")
             F.clear_jf(f)
             I.unload_accumulator(f, acc, g)
             F.synchronize_jf(f, g)
             if u_current is not None:
                 f = u_current(f, step)
 
+            mark("field_advance")
             f = trio(f, step)
 
+            if cad.clean_e or cad.clean_b or cad.sync:
+                mark("clean_div")
             if cad.clean_e:
                 clean_e(f, species)
             if cad.clean_b:
@@ -1272,6 +1318,7 @@ class Simulation:
                 self._mesh_syncs = mesh.host_syncs
             # everything the step carries to the next, in the state's
             # tensors
+            mark("carry")
             for h, sp in zip(state.species, species):
                 _keep_species(h, sp)
             if f is not state.fields:
@@ -1390,13 +1437,16 @@ class Simulation:
             k = state.step
             # align to the chunk grid (a restore may start between)
             todo = min(chunk - k % chunk, n - k)
+            status = bool(self.status_interval) and \
+                (k + todo) % self.status_interval == 0
             with prof.tic("advance", todo):
                 state = many_fn(state) if todo == chunk else \
                     SG.multi(step_fn, todo)(state)
-            k = state.step
-            if self.status_interval and k % self.status_interval == 0:
-                if self.device.type == "cuda":
+                # the table reports the device's time up to a status step
+                if status and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+            k = state.step
+            if status:
                 if verbose and flat_rank(self.grid) == 0:
                     print(f"Completed step {k} of {n}")
                     prof.update_profile()

@@ -52,6 +52,16 @@ def profile_window():
         time.sleep(PROFILE_PAD_S)
 
 
+def device_averages(prof) -> list:
+    """The entries of ``prof.key_averages()`` that are device work: device
+    time, and not a user annotation (the device-side shadow torch.profiler
+    draws for a record_function range, such as the step's ``vpic.*``
+    stages and replays, which would count its kernels twice)."""
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device(cpu: bool) -> torch.device:
     """The CPU when asked for, else the card; raises without one."""
     if cpu:
@@ -111,7 +121,7 @@ def device_kernels(fn, n: int, setup=None) -> dict:
                     setup()
                 fn()
         got = {e.key: (e.count / n, e.device_time_total / 1e3 / n)
-               for e in prof.key_averages() if e.device_type.name == "CUDA"}
+               for e in device_averages(prof)}
         if got:
             break
     return got

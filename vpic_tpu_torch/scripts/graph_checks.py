@@ -28,7 +28,7 @@ import torch
 
 from .. import step_graph as SG
 from ..deck import Simulation
-from . import profile_window
+from . import device_averages, profile_window
 from ..ops.fused_push3d import BLOCK, OUT_CAP
 from ..state import FIELD_NAMES, SPECIES_NAMES, FieldState, SimState, \
     SpeciesState
@@ -191,8 +191,7 @@ def timed(step_fn, state: SimState, n: int, particles: int,
             state = step_fn(state)
         torch.cuda.synchronize()
         win = time.perf_counter() - t0
-    busy = sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e6
+    busy = sum(e.device_time_total for e in device_averages(prof)) / 1e6
     out.update(busy_share=busy / win,
                device_ms=busy * 1e3 / profile_steps,
                calls=host_launches(prof))

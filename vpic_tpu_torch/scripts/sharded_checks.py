@@ -42,6 +42,7 @@ from ..ops import interp as I
 from ..ops import move_p as MP
 from ..ops import push as P
 from ..parallel import mesh as M
+from . import device_averages
 
 DECKS = dict(harris=(harris, "HarrisParams"), sc08=(sc08, "SC08Params"),
              reconnection=(reconnection, "ReconnectionParams"),
@@ -357,8 +358,7 @@ def run_rank(deck: str, params: dict, n_steps: int, device="cuda",
                 state = step(state)
             _sync(dev)
             win_ms = (time.perf_counter() - t0) * 1e3 / profile_steps
-        kern = [e for e in prof.key_averages()
-                if e.device_type.name == "CUDA" and e.device_time_total > 0]
+        kern = device_averages(prof)
         dev_ms = sum(e.device_time_total for e in kern) / 1e3 / profile_steps
         out.update(profile_ms=win_ms, device_ms=dev_ms,
                    busy=dev_ms / win_ms,

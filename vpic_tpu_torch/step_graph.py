@@ -33,6 +33,17 @@ to a device tally, and :func:`settle` reads the tallies (one read for
 every graphed step that replayed a branch since the last settle) and adds
 those launches.  Read the counters after ``settle()``.
 
+Stages: while a step is captured, its stage marker
+(``utils.profile.marks``) is ``_Capture.stage``, which lists the nodes each
+stage added to the graph (``csrc/graph_cond.cu``'s graph_capture_nodes;
+inside an IF body they go to the body's map).  Each graph keeps that stage
+map, plain data (``utils.profile.Run`` and ``If``), and adds nothing to the
+graph for it.  While a profiler records, and only then, every replay's map
+goes to ``replay_log`` and the host ranges ``vpic.chunk`` (a ``run``),
+``vpic.replay/<cadence>`` (a replay) and ``vpic.settle`` name what the
+host did; ``utils.profile.attribute`` lays the log over the device
+records.
+
 A deck :func:`refusal` names runs the eager step, chosen from its features
 when the step is made, never as a fallback: a failed capture, replay or IF
 node, or a PyTorch that cannot route the IF bodies' allocations to their
@@ -57,6 +68,7 @@ from .ops import fused_push3d as FP3
 from .ops import move_p as MP
 from .ops import residency as RES
 from .state import FIELD_NAMES, SPECIES_NAMES, SimState
+from .utils import profile as P
 
 KERNEL = "graph_cond"
 
@@ -79,6 +91,34 @@ HOOKS = ("user_field_injection", "user_current_injection",
 
 # graphed steps with branch launches not yet settled
 _unsettled: "weakref.WeakSet[GraphedStep]" = weakref.WeakSet()
+# bytes of a kernel's name that graph_capture_nodes keeps
+NAME_LEN = 256
+
+
+class ReplayLog:
+    """The stage maps of the replays made under a profiler, one a replay in
+    replay order (``utils.profile.attribute`` reads them): those of the
+    latest profiled stretch, since a profiled replay that follows an
+    unprofiled one starts the log anew, as does one after ``clear()``
+    (two profiler sessions with no unprofiled replay between them share
+    a log unless it is cleared between them)."""
+
+    def __init__(self):
+        self.maps: list = []
+        self.fresh = True       # the next profiled replay starts anew
+
+    def add(self, stage_map: tuple):
+        if self.fresh:
+            self.maps = []
+            self.fresh = False
+        self.maps.append(stage_map)
+
+    def clear(self):
+        self.maps = []
+        self.fresh = True
+
+
+replay_log = ReplayLog()
 
 
 def refusal(sim) -> Optional[str]:
@@ -136,6 +176,13 @@ def _lib() -> ctypes.CDLL:
         lib.graph_if_end.restype = ctypes.c_int
         lib.graph_cond_error_string.argtypes = [ctypes.c_int]
         lib.graph_cond_error_string.restype = ctypes.c_char_p
+        lib.graph_capture_nodes.argtypes = [
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_size_t)]
+        lib.graph_capture_nodes.restype = ctypes.c_int
+        lib.graph_cond_cu_error_string.argtypes = [ctypes.c_int]
+        lib.graph_cond_cu_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -145,15 +192,68 @@ def _raise_on(lib, rc: int, what: str):
         raise RuntimeError(f"{what} failed: {msg} ({rc})")
 
 
+def _nodes(stream: int, start: int):
+    """(nodes, kinds, names) of the graph ``stream`` is capturing into: its
+    number of nodes, and from the ``start``-th node on each one's kind
+    (utils.profile.Run's letters, 'o' for a node that leaves no record) and
+    kernel name (graph_capture_nodes)."""
+    lib = _lib()
+    count = ctypes.c_size_t(0)
+    rc = lib.graph_capture_nodes(stream, start, None, None, NAME_LEN, 0,
+                                 ctypes.byref(count))
+    k = count.value - start
+    if rc == 0 and k > 0:
+        kinds = ctypes.create_string_buffer(k)
+        names = ctypes.create_string_buffer(k * NAME_LEN)
+        rc = lib.graph_capture_nodes(stream, start, kinds, names, NAME_LEN,
+                                     k, ctypes.byref(count))
+    if rc != 0:
+        msg = lib.graph_cond_cu_error_string(rc).decode()
+        raise RuntimeError(f"graph_capture_nodes failed: {msg} ({rc})")
+    if k <= 0:
+        return count.value, "", []
+    raw = names.raw
+    return count.value, kinds.raw.decode(), [
+        raw[j * NAME_LEN:(j + 1) * NAME_LEN].split(b"\0", 1)[0].decode(
+            errors="replace") for j in range(k)]
+
+
 class _Capture:
     """What the step sees as ``advance.capture`` while it is captured:
-    ``branch(pred, name)`` captures its block under an IF node on the 0-d
-    bool ``pred`` (from the owner's body stream, allocating from its body
-    pool) and records the block's counter deltas."""
+    ``stage(name)`` ends the stage that runs and starts ``name`` (None ends
+    the last), putting the nodes the stage added into ``stages``, the
+    graph's stage map; ``branch(pred, name)`` captures its block under an
+    IF node on the 0-d bool ``pred`` (from the owner's body stream,
+    allocating from its body pool), maps the block's nodes as the node's
+    body and records the block's counter deltas."""
 
     def __init__(self, owner, tally):
         self.owner, self.tally = owner, tally
         self.deltas = {}
+        self.stages = []
+        self._stage = None
+        self._stream = None     # the capture stream
+        self._listed = 0        # nodes of the main graph already mapped
+        self._in_body = False
+
+    def stage(self, name: Optional[str]):
+        if self._in_body:
+            raise RuntimeError(f"stage {name!r} starts inside an IF body")
+        self._close()
+        self._stage = name
+
+    def _close(self):
+        """The nodes added since the last listing, as a Run of the stage
+        that runs."""
+        if self._stream is None:
+            self._stream = torch.cuda.current_stream().cuda_stream
+        self._listed, kinds, names = _nodes(self._stream, self._listed)
+        run = P.run_of(self._stage, kinds, names)
+        if run is None:
+            return
+        if self._stage is None:
+            raise RuntimeError("graph nodes captured outside any stage")
+        self.stages.append(run)
 
     @contextlib.contextmanager
     def branch(self, pred: torch.Tensor, name: str):
@@ -165,21 +265,30 @@ class _Capture:
             raise ValueError("an IF node takes a contiguous 0-d bool tensor")
         lib = _lib()
         body = owner.body_stream
+        self._close()
         _raise_on(lib, lib.graph_if_begin(
             torch.cuda.current_stream(dev).cuda_stream, body.cuda_stream,
             pred.data_ptr()), "graph_if_begin")
         launches += 1
+        # the condition kernel
+        self._close()
         before = _counts(owner.sim)
         _to_pool(dev.index, owner.body_pool)
         owner.pool_refs[0] += 1
+        self._in_body = True
         try:
             with torch.cuda.stream(body):
                 yield
                 self.tally.narrow(0, BRANCHES.index(name), 1).add_(1)
+            _, kinds, names = _nodes(body.cuda_stream, 0)
         finally:
+            self._in_body = False
             torch._C._cuda_endAllocateToPool(dev.index, owner.body_pool)
             _raise_on(lib, lib.graph_if_end(body.cuda_stream),
                       "graph_if_end")
+        run = P.run_of(self._stage, kinds, names)
+        self.stages.append(P.If(self._stage, name,
+                                () if run is None else (run,)))
         self.deltas[name] = _minus(_counts(owner.sim), before)
 
 
@@ -187,11 +296,14 @@ class _Graph:
     """One captured cadence: the graph, the counter deltas of a replay
     outside the IF nodes and inside each, the device tally of the branches
     taken, the replays not yet settled, the deposit counters the launches
-    write and the step's host diag entries."""
+    write, the step's host diag entries, the stage map (_Capture.stage)
+    and the cadence's ``label`` ("plain", or its decisions "+"-joined)."""
 
     def __init__(self, graph, deltas, branch_deltas, tally, deposits,
-                 host_diag):
+                 host_diag, stages, label):
         self.graph = graph
+        self.stages = stages
+        self.label = label
         self.branch_deltas = branch_deltas
         self.deltas = deltas
         for d in branch_deltas.values():
@@ -252,10 +364,15 @@ class GraphedStep:
 
     def run(self, state: SimState, n: int) -> SimState:
         """n steps from ``state``: replays, with the warm-up and capture of
-        each cadence met for the first and second time."""
-        state = self._adopt(state)
-        for _ in range(n):
-            state = self._step(state)
+        each cadence met for the first and second time.  Under a profiler
+        a ``vpic.chunk`` range, each replay's map logged (replay_log)."""
+        traced = P.profiling()
+        if not traced:
+            replay_log.fresh = True
+        with P.host_range("vpic.chunk", traced):
+            state = self._adopt(state)
+            for _ in range(n):
+                state = self._step(state, traced)
         return state
 
     # the graphs' tensors
@@ -300,14 +417,19 @@ class GraphedStep:
 
     # one step
 
-    def _step(self, state: SimState) -> SimState:
+    def _step(self, state: SimState, traced: bool) -> SimState:
         cad = self.advance.cadence(state.step, state.diag)
         entry = self.graphs.get(cad)
         if entry is None:
             if cad not in self.warm:
                 return self._warm_up(state, cad)
             entry = self._capture(state, cad)
-        entry.replay()
+        if traced:
+            replay_log.add(entry.stages)
+            with P.host_range("vpic.replay/" + entry.label, True):
+                entry.replay()
+        else:
+            entry.replay()
         _add_counts(self.sim, entry.deltas)
         if entry.tally is not None:
             entry.unsettled += 1
@@ -343,6 +465,7 @@ class GraphedStep:
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = self.advance(state)
+                cap.stage(None)
         finally:
             self.advance.capture = None
             after = _counts(self.sim)
@@ -351,28 +474,38 @@ class GraphedStep:
         self._check_kept(state, out, "capture")
         entry = _Graph(graph, _minus(after, before), cap.deltas, tally,
                        deposits, {k: v for k, v in out.diag.items()
-                                  if not isinstance(v, torch.Tensor)})
+                                  if not isinstance(v, torch.Tensor)},
+                       tuple(cap.stages), label(cad))
         self.graphs[cad] = entry
         self.captures += 1
         return entry
 
     def settle(self):
         """Adds the launches of the IF branches taken since the last
-        settle (one device read)."""
+        settle (one device read; a ``vpic.settle`` range under a
+        profiler)."""
         todo = [e for e in self.graphs.values() if e.unsettled]
         if not todo:
             return
-        taken = torch.stack([e.tally for e in todo]).tolist()
-        for e, (r, m) in zip(todo, taken):
-            if r + m != e.unsettled:
-                raise RuntimeError(f"{e.unsettled} replays took {r} "
-                                   f"rebuckets and {m} merges")
-            _add_counts(self.sim, e.branch_deltas["rebucket"], r)
-            _add_counts(self.sim, e.branch_deltas["merge"], m)
-            self.taken["rebucket"] += r
-            self.taken["merge"] += m
-            e.tally.zero_()
-            e.unsettled = 0
+        with P.host_range("vpic.settle", P.profiling()):
+            taken = torch.stack([e.tally for e in todo]).tolist()
+            for e, (r, m) in zip(todo, taken):
+                if r + m != e.unsettled:
+                    raise RuntimeError(f"{e.unsettled} replays took {r} "
+                                       f"rebuckets and {m} merges")
+                _add_counts(self.sim, e.branch_deltas["rebucket"], r)
+                _add_counts(self.sim, e.branch_deltas["merge"], m)
+                self.taken["rebucket"] += r
+                self.taken["merge"] += m
+                e.tally.zero_()
+                e.unsettled = 0
+
+
+def label(cad) -> str:
+    """A cadence's decisions that hold, "+"-joined, or "plain"."""
+    on = [k for k, v in cad._asdict().items()
+          if (any(v) if isinstance(v, tuple) else v)]
+    return "+".join(on) or "plain"
 
 
 def _release(graphs: dict, index: int, pool, refs: list):

@@ -48,6 +48,7 @@ from ..ops import fused_push3d as FP3
 from ..ops import interp as I
 from ..ops import push as P
 from ..ops import residency as RES
+from ..scripts import device_averages
 from ..scripts import graph_checks as GC
 from .. import step_graph as SG
 
@@ -274,8 +275,7 @@ def main(argv):
     SG.settle()
     calls = GC.host_launches(prof)
     kernels = [(e.key, e.device_time_total / 1e3 / n, e.count / n)
-               for e in prof.key_averages()
-               if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+               for e in device_averages(prof)]
     busy = sum(k[1] for k in kernels)
     n_kernels = sum(k[2] for k in kernels)
     step_info = {
