@@ -2593,7 +2593,7 @@ def main():
     from vpic_tpu_torch.ops import residency as RES
     from vpic_tpu_torch import step_graph as SG
     from vpic_tpu_torch.scripts import card as card_and_power
-    from vpic_tpu_torch.scripts import cuda_ms, kernel_device_ms
+    from vpic_tpu_torch.scripts import cuda_ms, device_ms, kernel_device_ms
     from vpic_tpu_torch.scripts import field_fuse_proto as RF
     from vpic_tpu_torch.utils import push_timing as PT
 
@@ -2604,12 +2604,15 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     counters = {FP.KERNEL: (FP, "launches"), FP3.KERNEL: (FP3, "launches"),
                 MP.KERNEL: (MP, "launches"),
-                RES.KERNEL: (RES, "launches"), C.KERNEL: (C, "launches"),
+                RES.KERNEL: (RES, "launches"),
+                RES.PLAN_KERNEL: (RES, "plan_launches"),
+                C.KERNEL: (C, "launches"),
                 C.COPY_KERNEL: (C, "copy_launches"),
                 C.MAILBOX_KERNEL: (C, "mailbox_launches"),
                 FF.KERNEL: (FF, "launches"), SG.KERNEL: (SG, "launches")}
-    sources = [FP.KERNEL, FP3.KERNEL, MP.KERNEL, RES.KERNEL, C.KERNEL,
-               C.MAILBOX_KERNEL, FF.KERNEL, SG.KERNEL]
+    sources = [FP.KERNEL, FP3.KERNEL, MP.KERNEL, RES.KERNEL,
+               RES.PLAN_KERNEL, C.KERNEL, C.MAILBOX_KERNEL, FF.KERNEL,
+               SG.KERNEL]
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
@@ -2755,7 +2758,7 @@ def main():
     kw = dict(homes=homes, residency=True)
     err3, ker = compare_push3d(torch, PT, FP3, g, species, homes, fcoef, qms,
                                "first push after the first rebucket")
-    sk, _, em_k, obx_k, _, _ = ker
+    sk, _, em_k, obx_k, ores_k, _ = ker
     ms3, plain3, ms3b, plain3b = (
         PT.time_push(fn, g, species, fcoef, qms, **kw)
         for fn in (FP3.fused_push3d_multi, FP3.fused_push3d_multi_ref) * 2)
@@ -2779,14 +2782,58 @@ def main():
         ms=ms3, plain_ms=plain3, bound_ms=bms, bound_by=bby,
         library_ms=None)
 
-    # the merge on the kernel push's exchange plan
+    # the exchange plan of the kernel push's outputs: the plan kernels
+    # against the plain version, bit for bit, and timed
     _, spid, usable = RES.static_layout(exts)
-    free_j = RES.block_counts(sk, em_k)
-    compact, starts_j, a_j, overflow, stats = RES.plan_exchange(
-        obx_k, torch.cat(homes), spid, usable, free_j, g)
-    if bool(overflow):
+    pargs = (sk, em_k, obx_k, ores_k, homes, spid, usable, g)
+    plan_k = RES.plan(*pargs)
+    plan_r = RES.plan_ref(*pargs)
+    torch.cuda.synchronize()
+    routed = int(plan_r.stats[0])
+    n = min(routed, plan_r.compact.vox.shape[0])
+    for what, x, y in (
+            ("compact.f", plan_k.compact.f[:, :n], plan_r.compact.f[:, :n]),
+            ("compact.vox", plan_k.compact.vox[:n], plan_r.compact.vox[:n]),
+            ("compact.valid", plan_k.compact.valid, plan_r.compact.valid),
+            *((name, getattr(plan_k, name), getattr(plan_r, name))
+              for name in ("starts_j", "a_j", "stats", "overflow",
+                           "misplaced", "rebuild"))):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.view(torch.int32) if x.dtype == torch.float32 else x,
+                y.view(torch.int32) if y.dtype == torch.float32 else y):
+            fail(f"3-D plan: the kernels' {what} differs from plain")
+    if bool(plan_k.overflow):
         fail("3-D: the first exchange plan overflows (the step would "
              "rebucket), so the merge would not run")
+    compact, starts_j, a_j, stats = (plan_k.compact, plan_k.starts_j,
+                                     plan_k.a_j, plan_k.stats)
+    kplan = lambda: RES.plan(*pargs)
+    rplan = lambda: RES.plan_ref(*pargs)
+    plan_ms, plan_plain, plan_ms2, plan_plain2 = (
+        cuda_ms(fn, PT.REPS) for fn in (kplan, rplan, kplan, rplan))
+    plan_dev = kernel_device_ms(kplan, "res_plan_", PT.REPS)
+    plan_plain_dev = device_ms(rplan, PT.REPS)
+    # the plan's own bytes: live, emit and voxel of every slot; valid and
+    # voxel of every outbox row, read twice; 8 words each way of every
+    # routed row
+    rows = obx_k.vox.shape[0]
+    nbytes = slots * 6 + rows * 10 + routed * 64
+    pbms, pbby = bound_ms(nbytes, 0)
+    print(f"compare: plan kernels == plain plan, bit for bit ({routed} "
+          f"rows routed, rebuild {bool(plan_k.rebuild)})")
+    print(f"timing ({card}): plan kernels {plan_ms:.4f} / {plan_ms2:.4f} "
+          f"ms, plain {plan_plain:.4f} / {plan_plain2:.4f} ms per plan of "
+          f"both species (CUDA events, best of 3 windows of {PT.REPS}, "
+          "kernel-plain-kernel-plain); device time: kernels "
+          f"{plan_dev:.5f} ms in {RES.PLAN_LAUNCHES} launches, plain "
+          f"{plan_plain_dev:.5f} ms (torch.profiler); bound {pbms:.5f} ms "
+          f"({nbytes / 1e6:.1f} MB, {100 * pbms / plan_dev:.1f} % of it)")
+    results[RES.PLAN_KERNEL] = dict(
+        name=RES.PLAN_KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/res_plan.cu",
+        replaces="none: vpic_tpu/ops/residency.py's plan is plain jnp",
+        max_abs_err=0.0, ms=plan_ms, plain_ms=plan_plain, bound_ms=pbms,
+        bound_by=pbby, library_ms=None)
     src = PT.clone_species(sk)          # the pushed lanes, kept
     ka, kb = PT.clone_species(sk), PT.clone_species(sk)
     mk = RES.merge_p(ka, em_k, compact, starts_j, a_j, ka)
@@ -2853,6 +2900,7 @@ def main():
         ms=merge_ms, plain_ms=merge_plain, bound_ms=bms, bound_by=bby,
         library_ms=None)
     del ker, sk, mk, mr, ka, kb, src, work, compact, species, fcoef
+    del plan_k, plan_r, pargs, kplan, rplan
     # the IF node's condition kernel: its plain version is the eager step's
     # host read of the bool; it reads one byte
     bms, bby = bound_ms(1, 0)
@@ -2906,8 +2954,12 @@ def main():
              f"{EAGER[sim]} of them eager")
     results[SG.KERNEL]["launches"] += launches[SG.KERNEL]
     beb_main += trio_once_a_step(sim, launches, N_STEPS_3D, "3-D run")
+    if launches[RES.PLAN_KERNEL] != RES.PLAN_LAUNCHES * N_STEPS_3D:
+        fail(f"plan kernels launched {launches[RES.PLAN_KERNEL]} times in "
+             f"{N_STEPS_3D} steps")
     results[FP3.KERNEL]["launches"] = launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] = launches[RES.KERNEL]
+    results[RES.PLAN_KERNEL]["launches"] = launches[RES.PLAN_KERNEL]
     print("run 3-D: the species tensors kept their storage over the "
           f"{N_STEPS_3D} steps")
     merge_calls, merge_dev, state = merge_per_step(torch, step_of(sim),

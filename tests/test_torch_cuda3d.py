@@ -15,6 +15,8 @@ path (lanes outside their home brick, no home map, wraps across the
 periodic faces of the edge bricks) are held to the same tolerances, and
 the kernel's deposit count (FP3.deposits) to what the case implies."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -163,10 +165,13 @@ def _merge_both(sk, em_k, obx_k, homes, g):
 
 
 def test_kernels_build_for_sm_90a(cuda):
-    _build.build_many([FP3.KERNEL, RES.KERNEL])
-    for name in (FP3.KERNEL, RES.KERNEL):
+    _build.build_many([FP3.KERNEL, RES.KERNEL, RES.PLAN_KERNEL])
+    for name in (FP3.KERNEL, RES.KERNEL, RES.PLAN_KERNEL):
         assert "sm_90a" in _build.build_log(name)
     assert "0 bytes spill stores" in _build.build_log(RES.KERNEL)
+    spills = re.findall(r"(\d+) bytes spill stores",
+                        _build.build_log(RES.PLAN_KERNEL))
+    assert len(spills) >= 4 and set(spills) == {"0"}
 
 
 @pytest.mark.parametrize("nppc", [4, 16])

@@ -190,6 +190,51 @@ def test_step_goes_through_both_kernel_wrappers(monkeypatch):
     assert len(calls["merge"]) == 4 - int(s.diag["_res_rebuckets"])
 
 
+def _old_plan(sps, emits, obx, ores, homes, spid, usable, g, inb=RES.INB):
+    """The residency step's plan as the step made it before plan existed:
+    its own calls of the three plain functions and the rebuild bool."""
+    free_j = RES.block_counts(sps, emits)
+    homes_cat = torch.cat(homes) if len(homes) > 1 else homes[0]
+    compact, starts_j, a_j, overflow, stats = RES.plan_exchange(
+        obx, homes_cat, spid, usable, free_j, g, inb)
+    misplaced = RES.any_misplaced(sps, emits, homes, g)
+    return RES.Plan(compact, starts_j, a_j,
+                    overflow | (ores > 0) | misplaced, stats, overflow,
+                    misplaced)
+
+
+@pytest.mark.parametrize("deck", ["harris", "beam"])
+def test_residency_step_plans_through_the_wrapper(monkeypatch, deck):
+    """The eager CPU residency step plans with residency.plan once a step
+    and gives the lanes, rebuckets and np of a step that calls the plain
+    functions itself, bit for bit (the beam deck rebuckets)."""
+    calls = []
+    plan = RES.plan
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return plan(*a, **kw)
+
+    runs = []
+    for fn in (spy, _old_plan):
+        monkeypatch.setattr(RES, "plan", fn)
+        st = (build3d_pair()[1] if deck == "harris"
+              else _beam_deck(vt, device="cpu"))
+        s = st.initialize()
+        step = st.make_step()
+        for _ in range(4):
+            s = step(s)
+        runs.append(s)
+    assert len(calls) == 4
+    a, b = runs
+    assert int(a.diag["_res_rebuckets"]) == int(b.diag["_res_rebuckets"])
+    if deck == "beam":
+        assert int(a.diag["_res_rebuckets"]) >= 1
+    for x, y in zip(a.species, b.species):
+        for n in FP3.LANE_FIELDS + ("np",):
+            assert torch.equal(getattr(x, n), getattr(y, n)), n
+
+
 def test_per_step_sort_path_matches_residency():
     """Capacity without room for a slack block: the brick sort every step
     and the push without outboxes; the same particles as the residency

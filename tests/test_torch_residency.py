@@ -20,6 +20,8 @@ import vpic_tpu_torch.ops.fused_push3d as FP3
 import vpic_tpu_torch.ops.residency as RES
 import vpic_tpu_torch.state as ST
 
+import plan_cases as PC
+from plan_cases import PLAN_CASES, crafted_outbox, random_outbox, to_outbox
 from torch_parity import np_
 
 torch.set_num_threads(2)
@@ -58,63 +60,13 @@ def test_slack_and_extents_match(n0, caps):
     assert RES.max_routed(4000) == RESJ.max_routed(4000)
 
 
-def _crafted_outbox(g, nblocks, out_cap, seed):
-    """test_residency.py:130-154: valid rows with voxels in bricks 0..2."""
-    rng = np.random.default_rng(seed)
-    obx = np.zeros((9, nblocks * out_cap), np.float32)
-    dest_brick = rng.integers(0, 3, nblocks * out_cap)
-    for r in range(nblocks * out_cap):
-        b = dest_brick[r]
-        bx, by, bz = b % 2, (b // 2) % 2, b // 4
-        obx[3, r] = (bx * 8 + 1) + g.NX * ((by * 8 + 1) + g.NY * (bz * 8 + 1))
-        obx[0, r] = rng.normal()
-    valid = rng.random(nblocks * out_cap) < 0.2
-    obx[8] = valid
-    obx[3, ~valid] = 0.0
-    return obx
-
-
-def _random_outbox(g, nblocks, out_cap, seed):
-    rng = np.random.default_rng(seed)
-    M = nblocks * out_cap
-    obx = rng.normal(size=(9, M)).astype(np.float32)
-    x = rng.integers(1, g.nx + 1, M)
-    y = rng.integers(1, g.ny + 1, M)
-    z = rng.integers(1, g.nz + 1, M)
-    obx[3] = x + g.NX * (y + g.NY * z)
-    obx[8] = rng.random(M) < 0.4
-    obx[:, obx[8] < 0.5] = 0.0
-    return obx
-
-
-def _to_outbox(obx):
-    return FP3.Outbox(f=torch.as_tensor(obx[[0, 1, 2, 4, 5, 6, 7]]),
-                      vox=torch.as_tensor(obx[3].astype(np.int32)),
-                      valid=torch.as_tensor(obx[8] > 0.5))
-
-
-PLAN_CASES = {
-    # test_residency.py:130-172: one species, 4 blocks, 8 bricks on 16^3
-    "crafted": dict(homes=[0, 0, 1, 2], spid=[0] * 4, usable=[True] * 4,
-                    free=[5, 3, 0, 7], out_cap=16, inb=8, seed=3),
-    "crafted_roomy": dict(homes=[0, 0, 1, 2], spid=[0] * 4,
-                          usable=[True] * 4, free=[40, 30, 0, 70],
-                          out_cap=16, inb=64, seed=3),
-    # two species, every brick, an unusable tail block, random free space
-    "random": dict(homes=[0, 1, 2, 3, 4, 5, 6, 7, 7, 0, 2, 2, 5, 6, 7, 7],
-                   spid=[0] * 9 + [1] * 7,
-                   usable=[True] * 8 + [False] + [True] * 7,
-                   free=None, out_cap=32, inb=128, seed=7),
-}
-
-
 @pytest.mark.parametrize("case", sorted(PLAN_CASES))
 def test_plan_exchange_matches(case):
     c = PLAN_CASES[case]
     gj, gt = _grids()
     nblocks = len(c["homes"])
     rng = np.random.default_rng(c["seed"])
-    make = _crafted_outbox if case.startswith("crafted") else _random_outbox
+    make = crafted_outbox if case.startswith("crafted") else random_outbox
     obx = make(gt, nblocks, c["out_cap"], c["seed"])
     free = np.asarray(c["free"] if c["free"] is not None
                       else rng.integers(0, 200, nblocks), np.int32)
@@ -125,7 +77,7 @@ def test_plan_exchange_matches(case):
         jnp.asarray(obx), jnp.asarray(homes), spid, usable,
         jnp.asarray(free), gj, inb=c["inb"])
     ct, st, at, ot, stt = RES.plan_exchange(
-        _to_outbox(obx), torch.as_tensor(homes), spid, usable,
+        to_outbox(obx), torch.as_tensor(homes), spid, usable,
         torch.as_tensor(free), gt, inb=c["inb"])
     assert np.array_equal(np.asarray(aj), np_(at))
     assert np.array_equal(np.asarray(sj), np_(st))
@@ -194,6 +146,102 @@ def test_block_counts_and_misplaced_match():
                zip(fixed_j, fixed_t)]
     assert not bool(RES.any_misplaced(fixed_t, em_t, ht, gt))
     assert not bool(RESJ.any_misplaced(fixed_j, em_j, hj, gj))
+
+
+def _layouts_inputs():
+    """test_block_counts_and_misplaced_match's layouts (strays included)
+    with a random outbox, as plan's arguments."""
+    g = _grids()[1]
+    rng = np.random.default_rng(11)
+    homes = [np.asarray([0, 1, 2, 3], np.int32),
+             np.asarray([4, 5, 6], np.int32)]
+    sps, emits = [], []
+    for h in homes:
+        arrs, emit = _layout_species(rng, g, 1024 * len(h), h)
+        sps.append(_pair(arrs)[1])
+        emits.append(torch.as_tensor(emit))
+    _, spid, usable = RES.static_layout([sp.capacity for sp in sps])
+    obx = to_outbox(random_outbox(g, 7, 64, 5))
+    return ((sps, emits, obx, torch.tensor(0, dtype=torch.int32),
+             [torch.as_tensor(h) for h in homes], spid, usable, g), {})
+
+
+@pytest.mark.parametrize("case", PC.CASES + ["layouts"])
+def test_plan_matches_the_plain_functions(case):
+    """plan on CPU tensors is block_counts, plan_exchange, any_misplaced
+    and the rebuild bool, exactly."""
+    args, kw = (_layouts_inputs() if case == "layouts"
+                else PC.plan_inputs(case))
+    sps, emits, obx, ores, homes, spid, usable, g = args
+    launched = RES.plan_launches
+    got = RES.plan(*args, **kw)
+    assert RES.plan_launches == launched
+    free_j = RES.block_counts(sps, emits)
+    compact, starts_j, a_j, overflow, stats = RES.plan_exchange(
+        obx, torch.cat(homes), spid, usable, free_j, g, **kw)
+    misplaced = RES.any_misplaced(sps, emits, homes, g)
+    want = RES.Plan(compact, starts_j, a_j,
+                    overflow | (ores > 0) | misplaced, stats, overflow,
+                    misplaced)
+    PC.assert_plans_equal(got, want, whole=True)
+    if case in ("stray", "layouts"):
+        assert bool(got.misplaced) and bool(got.rebuild)
+    if case == "roomy":
+        assert not bool(got.rebuild) and int(got.a_j.sum()) > 0
+    if case == "over_maxin":
+        assert int(got.stats[0]) > RES.max_routed(300) == 32768
+        assert bool(got.overflow)
+    if case == "outbox_cap":
+        assert bool(got.rebuild) and not bool(got.overflow)
+
+
+def _bad(args, which):
+    """plan's arguments with one of them made wrong."""
+    sps, emits, obx, ores, homes, spid, usable, g = args
+    sp0 = sps[0]
+    bad = dict(
+        live_dtype=lambda: ([sp0.replace(live=sp0.live.to(torch.uint8))]
+                            + sps[1:], emits, obx),
+        vox_dtype=lambda: ([sp0.replace(i=sp0.i.long())] + sps[1:], emits,
+                           obx),
+        emit_shape=lambda: (sps, [emits[0][:-1]] + emits[1:], obx),
+        emit_count=lambda: (sps, emits[:1], obx),
+        homes_dtype=lambda: (sps, emits, obx),
+        homes_shape=lambda: (sps, emits, obx),
+        rows=lambda: (sps, emits, obx._replace(
+            f=obx.f[:, :-1].contiguous(), vox=obx.vox[:-1].contiguous(),
+            valid=obx.valid[:-1].contiguous())),
+        f_dtype=lambda: (sps, emits, obx._replace(f=obx.f.double())),
+        vox_device=lambda: (sps, emits, obx._replace(
+            vox=torch.empty_like(obx.vox, device="meta"))),
+        ores=lambda: (sps, emits, obx),
+        spid=lambda: (sps, emits, obx),
+        usable=lambda: (sps, emits, obx),
+    )
+    s, e, o = bad[which]()
+    if which == "homes_dtype":
+        homes = [h.long() for h in homes]
+    if which == "homes_shape":
+        homes = [h[:-1] for h in homes]
+    if which == "ores":
+        ores = ores.long()
+    if which == "spid":
+        spid = np.zeros_like(spid)
+    if which == "usable":
+        usable = usable[:-1]
+    return s, e, o, ores, homes, spid, usable, g
+
+
+@pytest.mark.parametrize("which", [
+    "live_dtype", "vox_dtype", "emit_shape", "emit_count", "homes_dtype",
+    "homes_shape", "rows", "f_dtype", "vox_device", "ores", "spid",
+    "usable"])
+def test_plan_refuses_wrong_inputs(which):
+    args, kw = PC.plan_inputs("random")
+    RES.plan(*args, **kw)
+    err = TypeError if which.endswith("_dtype") else ValueError
+    with pytest.raises(err):
+        RES.plan(*_bad(args, which), **kw)
 
 
 def _dest(sps_t, dest):

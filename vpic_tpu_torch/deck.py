@@ -1223,11 +1223,8 @@ class Simulation:
             # home brick is misplaced, and the step rebuckets
             species, acc = handle_parked(species, walls, acc, diag, 0)
             mark("residency_plan")
-            free_j = RES.block_counts(species, emits)
-            homes_cat = torch.cat(homes) if nsp > 1 else homes[0]
-            compact, starts_j, a_j, overflow, _ = RES.plan_exchange(
-                obx, homes_cat, res_spid, res_usable, free_j, g)
-            misplaced = RES.any_misplaced(species, emits, homes, g)
+            pl = RES.plan(species, emits, obx, ores, homes, res_spid,
+                          res_usable, g)
             # both branches write into the state's extent slices, np and
             # home maps, so they keep their storage from step to step
             dst = [RES.slice_species(sp, res_exts[k])
@@ -1244,12 +1241,12 @@ class Simulation:
                 diag["_res_rebuckets"].add_(1)
 
             def merge():
-                out = RES.merge_p(species, emits, compact, starts_j, a_j,
-                                  dst)
+                out = RES.merge_p(species, emits, pl.compact, pl.starts_j,
+                                  pl.a_j, dst)
                 for o, sF in zip(out, sp_full):
                     _keep(sF.np, o.np)
 
-            rebuild = overflow | (ores > 0) | misplaced
+            rebuild = pl.rebuild
             mark("residency_exchange")
             if advance.capture is None:
                 # the step's one host read

@@ -6,16 +6,22 @@ brick sort with ``slack`` empty blocks per brick, and migrate incrementally:
 
 * the push kernel copies each block's brick-leavers into the block's outbox
   and marks them emitted (``ops/fused_push3d``, residency=True);
-* :func:`plan_exchange` routes the outbox rows to their destination bricks
-  with one stable sort over the outbox rows only, and allocates them to the
-  destination bricks' blocks by free space;
+* :func:`plan` plans the exchange: each block's free slots
+  (:func:`block_counts`), the outbox rows routed to their destination
+  bricks with one stable sort over the outbox rows only and allocated to
+  the destination bricks' blocks by free space (:func:`plan_exchange`),
+  whether a kept lane sits outside its home brick (:func:`any_misplaced`),
+  and the step's rebuild bool.  On CUDA tensors it launches
+  ``csrc/res_plan.cu`` (four launches for every species); on CPU tensors
+  it runs the plain version ``plan_ref``, those three functions, which the
+  CPU tests hold to the JAX package's;
 * :func:`merge_p` drops the emitted lanes, compacts each block's keepers in
   lane order and appends the routed newcomers, so the species arrays are
   complete at every step boundary.  It writes into destination species that
   may be its input (the step merges in place into the state's extent
   slices).  On CUDA tensors it launches ``csrc/merge_p.cu`` once for every
-  species; on CPU tensors it runs the plain version ``merge_p_ref``.  It
-  never falls back from one to the other.
+  species; on CPU tensors it runs the plain version ``merge_p_ref``.  Neither
+  wrapper falls back from one to the other.
 
 When the exchange would overflow (a brick's inflow exceeds its free slots,
 or more rows are routed than the compact bound), when a leaver exceeded the
@@ -32,7 +38,7 @@ is a block scan plus direct row moves, and none of that has a counterpart.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -42,14 +48,21 @@ from ..state import SpeciesState
 from . import _build
 from .fused_push import (_check, _round_up, c_array, launch_plan,
                          packed_src_sort, species_groups)
-from .fused_push3d import BLOCK, LANE_FIELDS, OUT_CAP, Outbox, brick_of, \
-    nbricks
+from .fused_push3d import BLOCK, LANE_FIELDS, OUT_CAP, Outbox, _nb, \
+    brick_of, chart_dims, nbricks
 
 INB = 128         # per-block inbox cap (newcomers a block takes per step)
 KERNEL = "merge_p"
+PLAN_KERNEL = "res_plan"
+PLAN_LAUNCHES = 4           # kernel launches a plan makes
+MAX_PLAN_SPECIES = 32       # species one plan takes (the kernels' table)
+PLAN_TILES = 1024           # the route's tiles of outbox rows, at most
+PLAN_SMEM = 232448          # shared memory a block can use (a key a word)
 
 # Kernel launches made by merge_p since the count was last reset.
 launches = 0
+# Kernel launches made by plan since the count was last reset.
+plan_launches = 0
 
 
 def static_layout(capacities, block: int = BLOCK):
@@ -214,6 +227,177 @@ def any_misplaced(sps: Sequence[SpeciesState], emits, homes, g: Grid,
         br = brick_of(torch.clamp(sp.i, min=1), g).to(torch.int64)
         out = out | torch.any(sp.live & ~emit & (br != hl))
     return out
+
+
+class Plan(NamedTuple):
+    """The exchange plan of one residency step.  ``compact``, ``starts_j``,
+    ``a_j``, ``overflow`` and ``stats`` are plan_exchange's, ``misplaced``
+    any_misplaced's, and ``rebuild`` (0-d bool) is overflow | (ores > 0) |
+    misplaced: the step rebuckets instead of merging where it is True."""
+    compact: Outbox
+    starts_j: torch.Tensor
+    a_j: torch.Tensor
+    rebuild: torch.Tensor
+    stats: torch.Tensor
+    overflow: torch.Tensor
+    misplaced: torch.Tensor
+
+
+def plan_ref(sps: Sequence[SpeciesState], emits, obx: Outbox, ores, homes,
+             spid, usable, g: Grid, inb: int = INB) -> Plan:
+    """Plain PyTorch version of plan: block_counts, plan_exchange and
+    any_misplaced, and the rebuild bool."""
+    free_j = block_counts(sps, emits)
+    homes_cat = torch.cat(homes) if len(homes) > 1 else homes[0]
+    compact, starts_j, a_j, overflow, stats = plan_exchange(
+        obx, homes_cat, spid, usable, free_j, g, inb)
+    misplaced = any_misplaced(sps, emits, homes, g)
+    return Plan(compact, starts_j, a_j, overflow | (ores > 0) | misplaced,
+                stats, overflow, misplaced)
+
+
+def _check_plan(sps: Sequence[SpeciesState], emits, obx: Outbox, ores,
+                homes, spid, usable) -> List[int]:
+    """Raise unless plan can take these inputs; returns each species'
+    layout blocks."""
+    if not sps or len(emits) != len(sps) or len(homes) != len(sps):
+        raise ValueError(f"plan: {len(sps)} species, {len(emits)} emit "
+                         f"marks and {len(homes)} home maps")
+    dev = obx.vox.device
+    nblk = []
+    for k, (sp, em, h) in enumerate(zip(sps, emits, homes)):
+        N = sp.capacity
+        _check(sp.live, f"species[{k}].live", torch.bool, (N,), dev)
+        _check(sp.i, f"species[{k}].i", torch.int32, (N,), dev)
+        _check(em, f"emits[{k}]", torch.bool, (N,), dev)
+        nblk.append(-(-N // BLOCK))
+        _check(h, f"homes[{k}]", torch.int32, (nblk[-1],), dev)
+    total = sum(nblk)
+    M = obx.vox.shape[0] if obx.vox.dim() == 1 else 0
+    if total == 0 or M == 0 or M % total:
+        raise ValueError(f"plan: {M} outbox rows for {total} layout blocks")
+    _check(obx.vox, "obx.vox", torch.int32, (M,), dev)
+    _check(obx.valid, "obx.valid", torch.bool, (M,), dev)
+    _check(obx.f, "obx.f", torch.float32, (7, M), dev)
+    if ores.device != dev or ores.dtype != torch.int32 or ores.numel() != 1:
+        raise ValueError(f"plan: ores must be one int32 on {dev}, not "
+                         f"{tuple(ores.shape)} {ores.dtype} on {ores.device}")
+    if not np.array_equal(np.asarray(spid),
+                          np.repeat(np.arange(len(sps)), nblk)):
+        raise ValueError("plan: spid is not the species' static_layout")
+    if np.asarray(usable).shape != (total,):
+        raise ValueError(f"plan: usable has shape "
+                         f"{np.asarray(usable).shape}, expected ({total},)")
+    return nblk
+
+
+def _div_magic(d: int):
+    """The magic and two shifts with which res_plan.cu's div_by divides an
+    unsigned 32-bit n by d >= 1 exactly (Granlund and Montgomery, PLDI
+    1994, fig. 4.1); the magic as the int32 of its bit pattern."""
+    lg = (d - 1).bit_length()
+    m = ((1 << 32) * ((1 << lg) - d)) // d + 1
+    return (m - (1 << 32) if m >= 1 << 31 else m), min(lg, 1), max(lg - 1, 0)
+
+
+def _plan_lib() -> ctypes.CDLL:
+    lib = _build.load(PLAN_KERNEL)
+    fn = lib.res_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.res_plan_error_string.argtypes = [ctypes.c_int]
+        lib.res_plan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plan(sps: Sequence[SpeciesState], emits, obx: Outbox, ores, homes,
+         spid, usable, g: Grid, inb: int = INB) -> Plan:
+    """The residency step's exchange plan from the pushed lanes (``sps``,
+    their emit marks, the push's outbox and its count ``ores`` of leavers
+    past the outbox cap), the per-species block -> home brick maps and the
+    static layout (``spid``, ``usable``: static_layout's).  The home maps
+    are nondecreasing, as the brick sort makes them.
+
+    CUDA tensors: four launches of csrc/res_plan.cu for every species
+    (MAX_PLAN_SPECIES to a plan), bit for bit plan_ref, except that the
+    compact rows past the routed total are left unwritten.  CPU tensors:
+    the plain version.  Any other device raises."""
+    global plan_launches
+    nblk = _check_plan(sps, emits, obx, ores, homes, spid, usable)
+    dev = obx.vox.device
+    if dev.type == "cpu":
+        return plan_ref(sps, emits, obx, ores, homes, spid, usable, g, inb)
+    if dev.type != "cuda":
+        raise ValueError(f"plan: unsupported device {dev}")
+    have = [k for k, n in enumerate(nblk) if n]
+    if len(have) > MAX_PLAN_SPECIES:
+        raise NotImplementedError(f"plan: {len(have)} species with lanes, "
+                                  f"the kernel takes {MAX_PLAN_SPECIES}")
+    B = chart_dims(g)[0]
+    if any(b & (b - 1) for b in B):
+        raise NotImplementedError(f"plan: brick sides {B} are not powers "
+                                  "of two")
+    nbx, nby, _ = _nb(g)
+    nb = nbricks(g)
+    nblocks = sum(nblk)
+    M = obx.vox.shape[0]
+    out_cap = M // nblocks
+    nkey = (int(np.max(spid)) + 1) * nb
+    G = max(1, -(-nkey // out_cap), -(-nblocks // PLAN_TILES))
+    ntiles = -(-nblocks // G)
+    maxin = max_routed(nblocks, out_cap)
+    ncompact = min(maxin, M)
+    if M >= 2 ** 31 or nkey * ntiles >= 2 ** 31 or nkey * 4 > PLAN_SMEM:
+        raise NotImplementedError(f"plan: {M} rows and {nkey} keys are "
+                                  "past the kernel's int32 indices or its "
+                                  "shared memory")
+    ptrs, ints, j0 = [], [], 0
+    for k, (sp, em, h) in enumerate(zip(sps, emits, homes)):
+        if nblk[k]:
+            # the lane pass loads 16 bytes of each at once
+            for t, name in ((sp.live, f"species[{k}].live"),
+                            (em, f"emits[{k}]"), (sp.i, f"species[{k}].i")):
+                if t.data_ptr() % 16:
+                    raise ValueError(f"{name} is not 16-byte aligned")
+            ptrs += [sp.live.data_ptr(), em.data_ptr(), sp.i.data_ptr(),
+                     h.data_ptr()]
+            ints += [sp.capacity, nblk[k], j0, k]
+        j0 += nblk[k]
+    _, usable_t, _ = _static_tensors(spid, usable, dev)
+    i32 = torch.int32
+    scratch = torch.empty(nblocks + 3 * nkey + nkey * ntiles + M + 2,
+                          dtype=i32, device=dev)
+    cap, count, diff, hist, rank, first, total = torch.split(
+        scratch, [nblocks, nkey, nkey, nkey * ntiles, M, nkey + 1, 1])
+    mis = torch.empty(nblocks, dtype=torch.uint8, device=dev)
+    sa = torch.empty((2, nblocks), dtype=i32, device=dev)
+    compact = Outbox(
+        f=torch.empty((7, ncompact), dtype=torch.float32, device=dev),
+        vox=torch.empty(ncompact, dtype=i32, device=dev),
+        valid=torch.empty(ncompact, dtype=torch.bool, device=dev))
+    stats = torch.empty(2, dtype=torch.int64, device=dev)
+    flags = torch.empty(3, dtype=torch.bool, device=dev)
+    dims = [g.sy, g.sz, *_div_magic(g.sy), *_div_magic(g.sz),
+            *(b.bit_length() - 1 for b in B), nbx, nby, nb, nkey, nblocks,
+            out_cap, G, ntiles, M, inb, maxin, ncompact]
+    bufs = [usable_t, obx.valid, obx.vox, obx.f, ores, cap, mis, count,
+            hist, rank, first, diff, total, sa[0], sa[1], compact.f,
+            compact.vox, compact.valid, stats, flags[0], flags[1], flags[2]]
+    lib = _plan_lib()
+    rc = lib.res_plan(
+        len(have), c_array(ctypes.c_void_p, ptrs),
+        c_array(ctypes.c_int, ints), c_array(ctypes.c_int, dims),
+        c_array(ctypes.c_void_p, [t.data_ptr() for t in bufs]),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.res_plan_error_string(rc).decode()
+        raise RuntimeError(f"res_plan launch failed: {msg} ({rc})")
+    plan_launches += PLAN_LAUNCHES
+    return Plan(compact, sa[0], sa[1], flags[2], stats, flags[0], flags[1])
 
 
 def _check_out(sps: Sequence[SpeciesState], out: Sequence[SpeciesState],

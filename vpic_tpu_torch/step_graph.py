@@ -80,7 +80,7 @@ launches = 0
 # the host counters a step bumps: the kernel wrappers' launch counts and the
 # residency relayouts (Simulation.relayouts, the last entry)
 COUNTERS = ((FP, "launches"), (FP3, "launches"), (RES, "launches"),
-            (FF, "launches"), (MP, "launches"), (C, "launches"),
+            (RES, "plan_launches"), (FF, "launches"), (MP, "launches"), (C, "launches"),
             (C, "copy_launches"), (C, "mailbox_launches"),
             (sys.modules[__name__], "launches"))
 # the push kernels' device deposit counts, written by the captured launches

@@ -17,7 +17,7 @@ ppc, L = 16) -- and prints three things, each as one JSON line:
   rebucket (the slack-padded brick sort, run by the step only when the
   exchange cannot merge), the
   rebucket's copy of its sort into the state's extent slices, the exchange
-  plan (block_counts + plan_exchange + any_misplaced) and the merge, in
+  plan (``residency.plan``: the csrc/res_plan.cu kernels) and the merge, in
   place as the step runs it; each 3-D push and merge runs on a fresh copy
   of the same lanes, made before the call and outside its time;
 * ``step``: ms per step of the real step (host clock around synchronize),
@@ -160,7 +160,6 @@ def _layers_3d(sim, state):
     out = rebucket()
     base = [o[0] for o in out]
     homes = [o[1] for o in out]
-    homes_cat = torch.cat(homes)
     fcoef = I.load_interpolator(state.fields, g)
     acc = torch.zeros((g.nv, 12), device="cuda")
     work = [sp.replace(**{n: getattr(sp, n).clone()
@@ -182,12 +181,9 @@ def _layers_3d(sim, state):
                             for n in FP3.LANE_FIELDS}) for sp in pushed]
 
     def exchange():
-        free_j = RES.block_counts(pushed, emits)
-        plan = RES.plan_exchange(obx, homes_cat, spid, usable, free_j, g)
-        RES.any_misplaced(pushed, emits, homes, g)
-        return plan
+        return RES.plan(pushed, emits, obx, ores, homes, spid, usable, g)
 
-    compact, starts_j, a_j, _, _ = exchange()
+    compact, starts_j, a_j = exchange()[:3]
     merged = [sp.replace(**{n: getattr(sp, n).clone()
                             for n in FP3.LANE_FIELDS}) for sp in pushed]
 
