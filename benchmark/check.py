@@ -87,16 +87,13 @@ def _coords(sp, g: pic.Geom):
     return pos, mom
 
 
-def _one_way(a, b, g: pic.Geom, uscale: float):
-    """(position error, momentum error) of a's lanes against their
-    partners in b, both sorted by ux."""
+def _match(a, b, g: pic.Geom, uscale: float):
+    """Per lane of a, against its partner in b (both sorted by ux, b not
+    empty): (position error plus momentum error, position error, momentum
+    error)."""
     pa, ua = a
     pb, ub = b
     na, nb = pa[0].numel(), pb[0].numel()
-    if na == 0:
-        return 0.0, 0.0
-    if nb == 0:
-        return float("inf"), float("inf")
     wrap = [g.particle_bc[k] == pic.P_PERIODIC for k in range(3)]
     base = torch.arange(na, device=pa[0].device)
     best = torch.full((na,), float("inf"), dtype=torch.float64,
@@ -120,6 +117,18 @@ def _one_way(a, b, g: pic.Geom, uscale: float):
         best = torch.where(take, d, best)
         best_pos = torch.where(take, dpos, best_pos)
         best_mom = torch.where(take, dmom, best_mom)
+    return best, best_pos, best_mom
+
+
+def _one_way(a, b, g: pic.Geom, uscale: float):
+    """(position error, momentum error) of a's lanes against their
+    partners in b, both sorted by ux."""
+    na, nb = a[0][0].numel(), b[0][0].numel()
+    if na == 0:
+        return 0.0, 0.0
+    if nb == 0:
+        return float("inf"), float("inf")
+    best, best_pos, best_mom = _match(a, b, g, uscale)
     # a lane with no partner at any finite distance (NaN included)
     lost = ~torch.isfinite(best)
     return (_num(float(torch.where(lost, float("inf"), best_pos).max())),
@@ -138,8 +147,7 @@ def lane_errs(prog: List[dict], ref: List[dict], g: pic.Geom,
     same lanes in the same order (the start), so lane k is k's partner."""
     out = {"lane_pos_err": 0.0, "lane_mom_err": 0.0, "lanes_unmatched": 0.0}
     for a, b in zip(prog, ref):
-        uscale = max(float(b[k].abs().max()) for k in ("ux", "uy", "uz"))
-        uscale = uscale if uscale > 0 else 1.0
+        uscale = _uscale(b)
         out["lanes_unmatched"] += abs(a["ux"].numel() - b["ux"].numel())
         if ordered and a["ux"].numel() == b["ux"].numel():
             (pa, ua), (pb, ub) = _coords(a, g), _coords(b, g)
@@ -152,6 +160,29 @@ def lane_errs(prog: List[dict], ref: List[dict], g: pic.Geom,
         for pe, me in errs:
             out["lane_pos_err"] = max(out["lane_pos_err"], _num(pe))
             out["lane_mom_err"] = max(out["lane_mom_err"], _num(me))
+    return out
+
+
+def _uscale(sp) -> float:
+    u = max(float(sp[k].abs().max()) for k in ("ux", "uy", "uz"))
+    return u if u > 0 else 1.0
+
+
+def partner_errs(prog: List[dict], ref: List[dict],
+                 g: pic.Geom) -> List[torch.Tensor]:
+    """Per species, each reference lane's distance to its partner among
+    the program's lanes (position error plus momentum error, as
+    ``lane_errs`` finds partners), in the reference's lane order."""
+    out = []
+    for a, b in zip(prog, ref):
+        order = torch.argsort(b["ux"].float())
+        if a["ux"].numel() == 0:
+            out.append(torch.full(order.shape, float("inf"),
+                                  dtype=torch.float64, device=order.device))
+            continue
+        sb = _coords({k: b[k][order] for k in pic.LANE_NAMES}, g)
+        best = _match(sb, _sorted(a, g), g, _uscale(b))[0]
+        out.append(torch.empty_like(best).index_copy_(0, order, best))
     return out
 
 

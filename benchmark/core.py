@@ -27,8 +27,11 @@ A run, as a user runs the deck:
    profiler;
 3. the check, once the window has closed and the peak memory is read: one
    more repeat through the same step object, the states before and after
-   a sample of its steps kept, the program freed, and the plain reference
-   (``check.py``) run against those states and against the initial state.
+   a sample of its steps kept with the random draws the program made in
+   each (``step_draws``), the program freed, and the plain reference
+   (``check.py``; the step of the configuration's reference module where
+   it has one, fed those draws, else ``reference/pic.step``) run against
+   those states and against the initial state.
 """
 
 from __future__ import annotations
@@ -348,14 +351,95 @@ def traced(drv: Runner, repeats: int) -> trace.Timeline:
     return trace.Timeline.from_profiler(prof, repeats * drv.repeat_len)
 
 
-def check_repeat(drv: Runner, traffic: dict, seed: int):
+def step_draws(sim, k: int, saved, before, sorts, species, deck: str = ""):
+    """The random draws of step ``k`` in plain form, remade from ``saved``,
+    the state of the program's generator before the step, or None when
+    the step drew nothing.
+
+    The draws are remade by the program's own ``draw`` of each collision
+    op that fires at step ``k``, in the step's order, on a clone of the
+    generator; the clone has to end where the program's generator ended,
+    or the program drew something that is not remade here, and the run
+    stops.  Each op gives one dict: ``pair`` (its species i and j),
+    ``interval``, ``q`` and ``m`` (of i and j) and ``rounds``, one dict a
+    pairing round: ``shuf_i`` (and ``shuf_j`` between species), the
+    shuffle keys of the live lanes, and the per-pair variates cut to the
+    pairs of the shuffled live lanes (the first n // 2 within a species,
+    n between species, for n live i-lanes).
+
+    The keys are the slots' keys of the live lanes in the order the
+    species has as the op shuffles it.  ``before`` gives each species'
+    live mask and its live lanes' voxels before the step.  A species that
+    no op has shuffled yet in the step lies in its slots, so its keys are
+    in ``plain()``'s order; where ``sorts`` says the step sorted it by
+    voxel before its collision ops (the general path's ``sort_p``,
+    ``Cadence.sorts``), its live lanes lie packed in that stable sort,
+    and their keys are put back in ``plain()``'s order.  A shuffle leaves
+    them packed in its own order, which the reference's shuffle gives
+    too."""
+    gen = sim._generator
+    if gen is None or torch.equal(saved, gen.get_state()):
+        return None
+    where = f"{deck or 'the deck'}, step {k}"
+    clone = torch.Generator(device=gen.device)
+    clone.set_state(saved)
+    live = [m for m, _ in before]
+    counts = [int(m.sum()) for m in live]
+    lay = ["sorted" if s else "slots" for s in sorts] + \
+        ["slots"] * (len(live) - len(sorts))
+
+    def keys(shuf, sp):
+        n = counts[sp]
+        if lay[sp] == "slots":
+            out = shuf[live[sp]]
+        else:
+            out = shuf[:n]
+            if lay[sp] == "sorted":
+                order = torch.sort(before[sp][1], stable=True).indices
+                out = torch.empty_like(out).index_copy_(0, order, out)
+        lay[sp] = "shuffled"
+        return out
+
+    ops = []
+    for op in sim.collision_ops:
+        interval = int(getattr(op, "interval", 0))
+        if interval <= 0 or k % interval:
+            continue
+        if not hasattr(op, "pair"):
+            raise RuntimeError(f"{where}: the collision op {op!r} fires, and "
+                               "the check remakes the draws of binary ops "
+                               "only")
+        i, j = op.pair
+        rounds = []
+        for d in op.draw(clone, species):
+            r = {"shuf_i": keys(d["shuf_i"], i)}
+            if i != j:
+                r["shuf_j"] = keys(d["shuf_j"], j)
+            n = counts[i] // 2 if i == j else counts[i]
+            r.update({key: v[:n] for key, v in d.items()
+                      if not key.startswith("shuf")})
+            rounds.append(r)
+        params = [sim.species[sp].params for sp in (i, j)]
+        ops.append(dict(pair=(i, j), interval=interval,
+                        q=tuple(p.q for p in params),
+                        m=tuple(p.m for p in params), rounds=rounds))
+    if not torch.equal(clone.get_state(), gen.get_state()):
+        raise RuntimeError(f"{where}: the program's generator moved past the "
+                           "draws of the collision ops that fire; the check "
+                           "cannot judge a step whose draws it does not know")
+    return ops
+
+
+def check_repeat(drv: Runner, traffic: dict, seed: int, deck: str = ""):
     """One more repeat through the window's step object, one step a call:
-    (the initial state, [(k, before, after)]) in plain form for step 0,
-    the repeat's last step and ``per_cadence`` steps drawn from the seed
-    of each cadence the other steps meet."""
+    (the initial state, [(k, before, after, draws)]) in plain form for
+    step 0, the repeat's last step and ``per_cadence`` steps drawn from
+    the seed of each cadence the other steps meet; ``draws`` is the
+    step's random draws (``step_draws``), None where it drew nothing."""
     sim, n = drv.sim, drv.repeat_len
     start = plain(drv.snap, sim)
     s = drv.state
+    gen = sim._generator
     picks = {0}
     rng = random.Random(seed)
     out = []
@@ -370,12 +454,66 @@ def check_repeat(drv: Runner, traffic: dict, seed: int):
             picks.add(n - 1)
         if k > max(picks) and k > 0:
             break
-        pre = plain(s, sim) if k in picks else None
+        pre = None
+        if k in picks:
+            pre = plain(s, sim)
+            saved = None if gen is None else gen.get_state()
+            before = [(sp.live.clone(), d["i"])
+                      for sp, d in zip(s.species, pre[1])]
+            sorts = getattr(drv.cadence(k, s.diag), "sorts", ())
         s = drv.one(s)
         if pre is not None:
-            out.append((k, pre, plain(s, sim)))
+            draws = None if gen is None else step_draws(
+                sim, k, saved, before, sorts, s.species, deck)
+            out.append((k, pre, plain(s, sim), draws))
     drv.state = restore(s, drv.snap)
     return start, out
+
+
+def _flipped(draws: List[dict], ids: torch.Tensor) -> List[dict]:
+    """The draws with each op's ``flip``: the codes of the pairs of
+    ``ids`` (``op << 36 | code``, as the reference marks them) in it."""
+    out = []
+    for n, op in enumerate(draws):
+        mine = ids[ids >> 36 == n] & ((1 << 36) - 1)
+        out.append(dict(op, flip=mine) if mine.numel() else op)
+    return out
+
+
+def settle(ref_step, pre, post, k: int, draws, got, g):
+    """The reference's step where it marks two-valued pairs (each lane's
+    ``two_valued``, the id of its pair, else -1: a pair whose outcome
+    rounding decides, see reference/collision.py): each such pair takes
+    the branch whose lanes lie nearer the program's after the step.  A
+    second step takes the other branch of every marked pair; a pair keeps
+    it where its lanes' partner distances (check.partner_errs) sum less
+    there.  Returns (draws with the branches taken, the reference's
+    fields, species)."""
+    rf, rs = got
+    marks = [sp.get("two_valued") for sp in rs]
+    if any(m is None for m in marks):
+        return draws, rf, rs
+    ids = torch.cat([m[m >= 0] for m in marks]).unique()
+    if not ids.numel():
+        return draws, rf, rs
+    other = _flipped(draws, ids)
+    rf2, rs2 = ref_step(pre[0], pre[1], k, other)
+    score = []
+    for out in (rs, rs2):
+        total = torch.zeros(ids.numel(), dtype=torch.float64,
+                            device=ids.device)
+        for m, e in zip(marks, check.partner_errs(post[1], out, g)):
+            on = m >= 0
+            total.index_add_(0, torch.searchsorted(ids, m[on]),
+                             e[on].to(total.device))
+        score.append(total)
+    take = ids[score[1] < score[0]]
+    if not take.numel():
+        return draws, rf, rs
+    if take.numel() == ids.numel():
+        return other, rf2, rs2
+    draws = _flipped(draws, take)
+    return (draws,) + tuple(ref_step(pre[0], pre[1], k, draws))
 
 
 def compare(config: dict, seed: int, start, samples, device,
@@ -383,9 +521,23 @@ def compare(config: dict, seed: int, start, samples, device,
     """The compared numbers of each check of the program's states (the
     start, then each sampled step), and with ``control`` the worst of
     those of the reference computed in bfloat16 in the program's place;
-    also each checked step's voxels before and after (the reference's)."""
+    also each checked step's voxels before and after (the reference's).
+
+    The reference's step is the configuration's reference module's
+    ``step(fields, species, g, k, draws)``, fed the draws the program
+    made at step ``k``, where the module defines one, else ``pic.step``;
+    pairs it marks two-valued take the branch the program's lanes match
+    (``settle``), and the control goes through the same step with the
+    same draws and branches."""
     ref = reference(config)
     g = ref.geom(config["params"])
+    deck_step = getattr(ref, "step", None)
+
+    def ref_step(fields, species, k, draws):
+        if deck_step is None:
+            return pic.step(fields, species, g, k)
+        return deck_step(fields, species, g, k, draws)
+
     floors = ref.field_scales(config["params"])
     per, ctrl = [], check.empty() if control else None
     f0, s0 = ref.initial_state(config["params"], config["load_seed"], device)
@@ -397,8 +549,9 @@ def compare(config: dict, seed: int, start, samples, device,
     per.append(got)
     del f0, s0
     moves = []
-    for k, pre, post in samples:
-        rf, rs = pic.step(pre[0], pre[1], g, k)
+    for k, pre, post, draws in samples:
+        got = ref_step(pre[0], pre[1], k, draws)
+        draws, rf, rs = settle(ref_step, pre, post, k, draws, got, g)
         groups = ("e_err", "b_err", "jf_err")
         if g.clean_interval > 0 and k % g.clean_interval == 0:
             groups += ("rho_err",)
@@ -407,8 +560,8 @@ def compare(config: dict, seed: int, start, samples, device,
         per.append(got)
         moves.append(([sp["i"] for sp in pre[1]], [sp["i"] for sp in rs]))
         if control:
-            cf, cs = pic.step(*pic.in_dtype(pre[0], pre[1], torch.bfloat16),
-                              g, k)
+            cf, cs = ref_step(*pic.in_dtype(pre[0], pre[1], torch.bfloat16),
+                              k, draws)
             cf, cs = pic.in_dtype(cf, cs, torch.float32)
             check.merge(ctrl, check.lane_errs(cs, rs, g))
             check.merge(ctrl, check.field_errs(cf, rf, groups, floors))
@@ -486,12 +639,13 @@ def run_cell(sp: Spec, seed: int, seconds: float, traced_run: bool,
             + (f", {ms[r]!r} device ms" if ms else ""))
     log(f"window: {repeats} repeats, {steps} steps in {secs!r} s")
 
-    start, samples = check_repeat(drv, sp.traffic, seed)
+    start, samples = check_repeat(drv, sp.traffic, seed,
+                                  sp.config.get("name", sp.name))
     free(drv)
     t = time.perf_counter()
     per, _, run.moves, run.geom = compare(sp.config, seed, start, samples,
                                           device)
-    for what, got in zip(["start"] + [f"step {k}" for k, _, _ in samples],
+    for what, got in zip(["start"] + [f"step {k}" for k, *_ in samples],
                          per):
         log(f"check {what}: " + ", ".join(f"{k} {v!r}"
                                           for k, v in got.items()))
@@ -499,7 +653,7 @@ def run_cell(sp: Spec, seed: int, seconds: float, traced_run: bool,
     for got in per:
         check.merge(nums, got)
     run.cells = run.geom.nx * run.geom.ny * run.geom.nz
-    log(f"check: steps {[k for k, _, _ in samples]} and the start, "
+    log(f"check: steps {[k for k, *_ in samples]} and the start, "
         f"{time.perf_counter() - t:.3f} s")
     ok, rows = check.judge(nums, sp.limits)
 

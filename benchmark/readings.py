@@ -22,14 +22,15 @@ ROOT = Path(__file__).resolve().parent.parent
 def readings(sp, seed: int, device, control: bool) -> dict:
     from benchmark import check, core
     drv, _ = core.setup(sp, seed, device)
-    start, samples = core.check_repeat(drv, sp.traffic, seed)
+    start, samples = core.check_repeat(drv, sp.traffic, seed,
+                                       sp.config.get("name", sp.name))
     core.free(drv)
     per, ctrl, _, _ = core.compare(sp.config, seed, start, samples, device,
                                    control)
     nums = check.empty()
     for got in per:
         check.merge(nums, got)
-    return {"seed": seed, "steps": [k for k, _, _ in samples],
+    return {"seed": seed, "steps": [k for k, *_ in samples],
             "program": nums, "control": ctrl, "per_check": per}
 
 

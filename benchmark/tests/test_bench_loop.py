@@ -73,7 +73,7 @@ def test_the_check_samples_every_cadence():
     sp = bench_helpers.tiny("harris2d.64sq.64ppc")
     drv, _ = core.setup(sp, bench_helpers.SEED, "cpu")
     start, samples = core.check_repeat(drv, sp.traffic, bench_helpers.SEED)
-    steps = [k for k, _, _ in samples]
+    steps = [k for k, *_ in samples]
     n = drv.repeat_len
     assert steps[0] == 0 and steps[-1] == n - 1
     cads = {drv.cadence(k, drv.state.diag) for k in steps[1:-1]}
