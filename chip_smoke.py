@@ -145,7 +145,11 @@ Phases, each of which must pass (any failure exits non-zero):
      and the particle counts kept, no unfinished streak, the energy drift
      below 3e-2; prints ms/step, then over one 5-step cycle the launches
      and device ms a step and the busy share (torch.profiler), and the
-     collision stage's device ms and launches a firing;
+     collision stage's device ms and launches a firing; the rebuckets by
+     cause (residency.rebuckets_by_cause: they add up to the rebuckets
+     after the push), and 6 steps traced around a firing, the firing
+     step's replay claimed whole (utils.profile.attribute), its device ms
+     by stage;
  20. emission: child_langmuir's apply on the diode (after 30 CPU steps)
      on the card and the CPU from the same draws (new lanes to 3e-5, rhob
      and acc to 1e-5 of their largest, one move_p launch); then the diode
@@ -1629,10 +1633,12 @@ def stochastic_phases(torch, counters, card, results):
     ptrs = [[getattr(sp, k).data_ptr() for k in FP3.LANE_FIELDS]
             for sp in state.species]
     sim.relayouts = 0
+    causes0 = RES.rebuckets_by_cause()
     state, elapsed, launches = run_steps(torch, sim, state, RECON_STEPS,
                                          counters)
     firings = sum(1 for k in range(RECON_STEPS) if k % tau == 0)
     post = int(state.diag["_res_rebuckets"])
+    causes = {k: v - causes0[k] for k, v in RES.rebuckets_by_cause().items()}
     e1 = sim.energies(state).double().cpu().numpy()
     drift = abs(e1.sum() - e0.sum()) / e0.sum()
     n1 = [int(sp.np) for sp in state.species]
@@ -1641,7 +1647,8 @@ def stochastic_phases(torch, counters, card, results):
           f"{elapsed * 1e3 / RECON_STEPS:.3f} ms/step ({card}, host clock "
           f"around synchronize); launches {launches}; rebuckets before the "
           f"push {sim.relayouts} ({firings} firing steps), after it {post} "
-          f"({(sim.relayouts + post) / RECON_STEPS:.2f} a step); host syncs "
+          f"({(sim.relayouts + post) / RECON_STEPS:.2f} a step; by cause "
+          f"{causes}); host syncs "
           f"{sim.host_syncs}; unfinished {unfinished}; energy drift "
           f"{drift:.3e} (bound 3e-2); max memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -1651,6 +1658,9 @@ def stochastic_phases(torch, counters, card, results):
     if sim.relayouts != firings:
         fail(f"reconnection: {sim.relayouts} rebuckets before the push for "
              f"{firings} collision firings")
+    if sum(causes.values()) != post:
+        fail(f"reconnection: {post} rebuckets after the push, {causes} by "
+             "cause")
     if launches[RES.KERNEL] != RECON_STEPS - post:
         fail(f"reconnection: {launches[RES.KERNEL]} merges with {post} "
              f"rebuckets after the push in {RECON_STEPS} steps")
@@ -1715,7 +1725,43 @@ def stochastic_phases(torch, counters, card, results):
           f"{coll_dev:.3f} ms in {coll_launches:.0f} launches = "
           f"{100 * coll_dev / tau / step_dev:.1f} % of the device time a "
           f"step amortized ({card})")
-    del sim, state, box, stage_in, step, prof
+    # a firing step's replay under the profiler, in a window of 6 steps that
+    # starts on the step before it (the profiler may drop a few records of
+    # a window's first replay; such a window is profiled again, up to
+    # PROFILE_TRIES): the firing replay claimed whole, its device records
+    # by stage, the generator's fills that open it in collision
+    from vpic_tpu_torch import step_graph as SG
+    from vpic_tpu_torch.scripts import PROFILE_TRIES, profile_window
+    from vpic_tpu_torch.utils import profile as PF
+    fs = box["state"]
+    for _ in range(PROFILE_TRIES):
+        while (fs.step + 1) % tau:
+            fs = step(fs)
+        SG.replay_log.clear()
+        with profile_window() as fprof:
+            for _ in range(6):
+                fs = step(fs)
+        recs = sorted(((e.name, float(e.time_range.start),
+                        float(e.time_range.end)) for e in fprof.events()
+                       if e.device_type.name == "CUDA"
+                       and not getattr(e, "is_user_annotation", False)),
+                      key=lambda r: r[1])
+        got = PF.attribute(recs, SG.replay_log.maps)
+        fired = got.stage_replays.get("collision", 0)
+        if fired == 1 and not got.misfits:
+            break
+    box["state"] = fs
+    split = ", ".join(f"{k} {v / 1e3:.4f}" for k, v in sorted(
+        got.stage_us.items(), key=lambda kv: -kv[1]))
+    print(f"run reconnection: 6 steps traced from step {fs.step - 6}, "
+          f"{fired} firing: device ms by stage {split}; unstaged "
+          f"{len(got.unstaged)} records "
+          f"({sum(e - a for _, a, e in got.unstaged) / 1e3:.4f} ms), "
+          f"{got.misfits} misfit replays, branches {got.taken} ({card})")
+    if fired != 1 or got.misfits > 1:
+        fail(f"reconnection: the firing step's replay is not claimed whole: "
+             f"{fired} firing replays claimed, {got.misfits} misfits")
+    del sim, state, box, stage_in, step, prof, fprof
     drift_recon = drift
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 

@@ -128,8 +128,9 @@ def plan_inputs(case, device="cpu"):
     block, tiles of several blocks and chunks, a partial last tile),
     "stray" (a kept lane outside its home brick), "roomy" (two blocks of
     every brick and few rows: nothing overflows), "over_maxin" (every one
-    of 38,400 outbox rows valid, past max_routed's 32,768) and
-    "outbox_cap" (roomy, with leavers past the outbox cap: ores > 0).  Returns
+    of 38,400 outbox rows valid, past max_routed's 32,768),
+    "outbox_cap" (roomy, with leavers past the outbox cap: ores > 0) and
+    "roomy_stray" (roomy, with a stray: misplaced, nothing overflows).  Returns
     (args, kwargs) for plan(*args, **kwargs)."""
     rng = np.random.default_rng(zlib.crc32(case.encode()))
     if case in PLAN_CASES:
@@ -150,7 +151,7 @@ def plan_inputs(case, device="cpu"):
         inb, ores = c["inb"], 0
     else:
         g = grid(32 if case == "many_keys" else 16)
-        roomy = case in ("roomy", "outbox_cap")
+        roomy = case in ("roomy", "outbox_cap", "roomy_stray")
         nblk = dict(many_keys=[11, 10, 10], stray=[6, 5],
                     over_maxin=[150, 150]).get(case, [16, 16])
         out_cap = dict(many_keys=32, over_maxin=128, stray=64).get(case, 32)
@@ -161,7 +162,8 @@ def plan_inputs(case, device="cpu"):
             homes = [np.repeat(np.arange(nb, dtype=np.int32), 2)] * 2
         caps = [n * 1024 for n in nblk]
         arrs, emits = layout_species(rng, g, caps, homes,
-                                     strays=1 if case == "stray" else 0)
+                                     strays=1 if case.endswith("stray")
+                                     else 0)
         spid = np.repeat(np.arange(len(nblk)), nblk).astype(np.int32)
         usable = np.ones(len(spid), bool)
         obx = random_outbox(g, len(spid), out_cap, 11,
@@ -176,7 +178,21 @@ def plan_inputs(case, device="cpu"):
 
 
 CASES = sorted(PLAN_CASES) + ["many_keys", "stray", "roomy", "over_maxin",
-                              "outbox_cap"]
+                              "outbox_cap", "roomy_stray"]
+# the rebucket cause (residency.CAUSES) each case's plan decides, where it
+# decides one
+CAUSE_OF = {"outbox_cap": "outbox", "over_maxin": "exchange",
+            "roomy_stray": "misplaced"}
+
+
+def cause(plan, ores) -> str:
+    """The cause a plan's flags give its rebucket (the first of residency.
+    CAUSES that holds), or None where it merges."""
+    if not bool(plan.rebuild):
+        return None
+    if int(ores) > 0:
+        return "outbox"
+    return "exchange" if bool(plan.overflow) else "misplaced"
 
 
 def assert_plans_equal(k, r, whole=False):

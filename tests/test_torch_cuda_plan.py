@@ -60,6 +60,27 @@ def test_plan_kernel_matches_plain(cuda, case):
         assert bool(k.rebuild) and not bool(k.overflow)
 
 
+@pytest.mark.parametrize("case", sorted(PC.CAUSE_OF) + ["roomy"])
+def test_plan_kernel_counts_rebuckets_by_cause(cuda, case):
+    """The plan kernel adds a rebucket to the count of its cause, as the
+    plain version's flags give it, and writes the counts through to the
+    host copy residency.rebuckets_by_cause reads: an outbox past its cap,
+    an exchange overflow, a stray alone, and a merge (no count)."""
+    args, kw = PC.plan_inputs(case, cuda)
+    torch.cuda.synchronize()
+    before = RES.rebuckets_by_cause()
+    k, r = _plans(args, kw)
+    after = RES.rebuckets_by_cause()
+    want = PC.cause(r, args[3])
+    assert want == PC.CAUSE_OF.get(case)
+    assert {c: after[c] - before[c] for c in RES.CAUSES} == \
+        {c: int(c == want) for c in RES.CAUSES}
+    dev, _ = RES._cause_counters(args[2].vox.device)
+    cpu = RES._cpu_causes.tolist()
+    assert dev.tolist() == [after[c] - cpu[n]
+                            for n, c in enumerate(RES.CAUSES)]
+
+
 def _push_and_plan(sim):
     g, species, homes, fcoef, qms = _sorted_state(sim)
     (sk, _, em, obx, ores, _), _ = _push_both(g, species, homes, fcoef, qms)

@@ -7,7 +7,11 @@ step_graph._Capture.stage), at small sizes:
   bookkeeping stubbed out: the map adds nothing to the graph;
 * a profiled window of replays is attributed with no unstaged record;
 * the rebucket bodies the attribution finds in a traced window equal the
-  window's ``diag["_res_rebuckets"]`` increment.
+  window's ``diag["_res_rebuckets"]`` increment;
+* in a profiled window of the collisional reconnection deck every firing
+  replay, which opens with the generator's fills, is claimed whole, and
+  the window's rebuckets by cause (``step_graph.rebucket_log``) add up to
+  the rebuckets found.
 
 Every test here is marked ``gpu`` and skips without a CUDA device
 (decided inside the fixture, never at import).  This file imports neither
@@ -183,3 +187,27 @@ def test_rebuckets_found_equal_the_counter(cuda):
     assert rebuckets >= 1
     assert got.taken.get("rebucket", 0) == rebuckets
     assert got.taken.get("merge", 0) == 6 - rebuckets
+
+
+def test_a_collisional_window_is_attributed_whole(cuda):
+    """Every firing replay of the window, which opens with the generator's
+    fills, is claimed whole; the window starts on a plain step, since the
+    profiler may drop a few records of a window's first replay (then that
+    replay alone misfits, as on the harris windows above)."""
+    sim = GC.build("reconnection", cuda, nx=16, ny=16, nz=16, nppc=8,
+                   Lx=8.0, Ly=8.0, Lz=8.0, headroom=6.0, tau_coll_interval=2)
+    n = 24
+    many = sim.make_multi_step(n)
+    state = GC.warm_for(many.step, sim.initialize(), n + 1)
+    if state.step % 2 == 0:
+        state = many.step(state)
+    r0 = int(state.diag["_res_rebuckets"])
+    SG.replay_log.clear()
+    with profile_window() as prof:
+        state = many(state)
+    rebuckets = int(state.diag["_res_rebuckets"]) - r0
+    got = PF.attribute(_device_records(prof), SG.replay_log.maps)
+    assert got.stage_replays["collision"] == n // 2
+    assert got.misfits <= 1 and got.replays == n - got.misfits
+    assert {"collision", "sort_p", "residency_exchange"} <= set(got.stage_us)
+    assert sum(SG.rebucket_log.counts().values()) == rebuckets

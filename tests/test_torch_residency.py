@@ -195,6 +195,21 @@ def test_plan_matches_the_plain_functions(case):
         assert bool(got.rebuild) and not bool(got.overflow)
 
 
+@pytest.mark.parametrize("case", PC.CASES)
+def test_plan_counts_its_rebucket_by_cause(case):
+    """A plan that decides a rebucket counts it once, under the first cause
+    its flags give (residency.CAUSES): leavers past an outbox cap, an
+    exchange overflow, misplaced lanes alone; a merge counts nothing."""
+    args, kw = PC.plan_inputs(case)
+    before = RES.rebuckets_by_cause()
+    RES.plan(*args, **kw)
+    after = RES.rebuckets_by_cause()
+    want = PC.cause(RES.plan_ref(*args, **kw), args[3])
+    assert {k: after[k] - before[k] for k in RES.CAUSES} == \
+        {k: int(k == want) for k in RES.CAUSES}
+    assert want == PC.CAUSE_OF.get(case, want)
+
+
 def _bad(args, which):
     """plan's arguments with one of them made wrong."""
     sps, emits, obx, ores, homes, spid, usable, g = args

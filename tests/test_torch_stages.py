@@ -9,6 +9,13 @@
 * On an eager harris 2-D and 3-D step under the CPU profiler every
   top-level aten op lies inside exactly one ``vpic.<stage>`` range, and the
   ranges come in the order of utils.profile.STAGES.
+* Replays of the collisional deck's graphed step recorded on the card
+  (tests/data/collision_replays.json): PyTorch fills the generator's seed
+  and offset before it launches a graph that draws, so a firing replay's
+  capture map misfits its records, and its replay map
+  (``utils.profile.replayed``) claims them all, also where a record of
+  the window's first replay was dropped; the graphed step's warm-up finds
+  the stage that draws.
 * With no profiler the stage marker and the graphed step's replay logging
   open no record_function range and log nothing; under one they do.
 * scripts.device_averages leaves the ranges' device-side shadows out of
@@ -17,13 +24,15 @@
 The graphs themselves are checked on the card
 (tests/test_torch_cuda_stages.py)."""
 
+import json
+import os
 import types
 
 import pytest
 import torch
 
 from vpic_tpu_torch import step_graph as SG
-from vpic_tpu_torch.models import harris
+from vpic_tpu_torch.models import harris, reconnection
 from vpic_tpu_torch.scripts import device_averages
 from vpic_tpu_torch.state import SimState
 from vpic_tpu_torch.utils import profile as PF
@@ -153,6 +162,80 @@ def test_records_before_the_first_replay_are_unstaged():
     got = PF.attribute(junk + recs, [MAP] * 2)
     assert got.unstaged == junk and got.replays == 2
     assert got.stage_us == _expected_us(stages)
+
+
+REPLAYS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "collision_replays.json")
+
+
+def _decoded(m) -> tuple:
+    return tuple(Run(it[1], it[2], tuple(tuple(a) for a in it[3]))
+                 if it[0] == "R" else If(it[1], it[2], _decoded(it[3]))
+                 for it in m)
+
+
+def _replays(deck):
+    """(records, capture maps, the fixture's entry) of one deck."""
+    with open(REPLAYS) as fh:
+        d = json.load(fh)["decks"][deck]
+    recs = [(d["names"][k], s, e) for k, s, e in d["records"]]
+    return recs, [_decoded(m) for m in d["maps"]], d
+
+
+@pytest.mark.parametrize("deck", ["general 8^3", "residency 16^3"])
+def test_a_firing_replay_is_attributed_whole(deck):
+    recs, maps, d = _replays(deck)
+    # plain, firing, plain: the firing replay's capture map misfits
+    assert [d["drew"][k] for k in d["replays"]] == [None, "collision", None]
+    captured = PF.attribute(recs, [maps[k] for k in d["replays"]])
+    assert captured.misfits >= 1 and captured.unstaged
+    got = PF.attribute(recs, [PF.replayed(maps[k], d["drew"][k])
+                              for k in d["replays"]])
+    assert got.replays == 3 and got.misfits == 0 and got.unstaged == []
+    assert got.stage_replays["collision"] == 1
+    assert sum(got.stage_us.values()) == pytest.approx(
+        sum(e - s for _, s, e in recs))
+    # the generator's two fills open the firing replay, in its collision
+    first = PF._Window(recs).walk(maps[d["replays"][0]], 0)[0]
+    fills = recs[first:first + len(PF.GENERATOR_PROLOGUE)]
+    assert all("FillFunctor<long>" in n for n, _, _ in fills)
+    assert ("collision", fills[0][1], fills[-1][2]) in got.spans
+    if deck.startswith("residency"):
+        assert {"sort_p", "residency_exchange"} <= set(got.stage_us)
+
+
+@pytest.mark.parametrize("deck", ["general 8^3", "residency 16^3"])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_a_record_dropped_from_the_first_replay_costs_it_alone(deck, where):
+    """The profiler drops a record of a window's first replay (plain): that
+    replay misfits, and the firing replay after it, whose map the plain
+    one's would also fit over its tail, is still claimed whole."""
+    recs, maps, d = _replays(deck)
+    log = [PF.replayed(maps[k], d["drew"][k]) for k in d["replays"]]
+    first = PF._Window(recs).walk(log[0], 0)[0]
+    drop = 0 if where == "first" else first - 1
+    recs = recs[:drop] + recs[drop + 1:]
+    got = PF.attribute(recs, log)
+    assert got.misfits == 1 and got.replays == 2
+    assert got.stage_replays["collision"] == 1
+    assert got.unstaged == recs[:first - 1]
+
+
+def test_the_warm_up_finds_the_stage_that_draws():
+    sim = reconnection.build(reconnection.ReconnectionParams(
+        nx=8, ny=8, nz=8, nppc=8, Lx=8.0, Ly=8.0, Lz=8.0,
+        tau_coll_interval=2), device="cpu")
+    state = sim.initialize()
+    gs = SG.GraphedStep.__new__(SG.GraphedStep)
+    gs.sim, gs.advance = sim, sim.make_advance()
+    gs.warm, gs.eager_steps = {}, 0
+    drew = []
+    for _ in range(2):
+        cad = gs.advance.cadence(state.step, state.diag)
+        state = gs._warm_up(state, cad)
+        drew.append(gs.warm[cad])
+    assert drew == ["collision", None]
+    assert gs.advance.observe is None
 
 
 def test_run_of_drops_nodes_without_records_and_finds_anchors():

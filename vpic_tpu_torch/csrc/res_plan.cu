@@ -42,7 +42,11 @@
 //      position < routed total.  The grid's last block reduces the
 //      shortfalls and misplaced marks into stats, overflow (a shortfall, or
 //      more rows than maxin), misplaced and the rebuild bool
-//      (overflow | ores > 0 | misplaced).
+//      (overflow | ores > 0 | misplaced); where it holds, it adds one to the
+//      count of the rebucket's cause, the first of leavers past an outbox
+//      (ores > 0), an exchange overflow and misplaced lanes alone, in device
+//      memory, and writes the count through to a mapped host copy, which the
+//      host reads with no copy on the device (res_plan_host_counts).
 // The order is that of a stable sort of the rows by key (torch.sort(stable=
 // True) in plan_exchange): keys first, then tiles in row order, then the
 // rank inside the tile.  Every output is bit for bit the plain version's;
@@ -64,6 +68,7 @@
 // --use_fast_math.  The entry point returns the first launch error.
 
 #include <climits>
+#include <cstring>
 
 #include <cuda_runtime.h>
 
@@ -131,6 +136,8 @@ struct PlanArgs {
   unsigned char* overflow;
   unsigned char* misplaced;
   unsigned char* rebuild;
+  long long* causes;       // (3,) rebuckets by cause, device memory
+  long long* causes_host;  // (3,) their mapped host copy
 };
 
 // n / d for an unsigned n and the invariant d of the magic m and shifts s1,
@@ -367,9 +374,14 @@ __global__ void __launch_bounds__(ROW_THREADS)
       const bool over = mx > 0 || total > p.maxin;
       p.stats[0] = total;
       p.stats[1] = mx;
+      const bool capped = *p.ores > 0;
       *p.overflow = over;
       *p.misplaced = any_mis != 0;
-      *p.rebuild = over || *p.ores > 0 || any_mis != 0;
+      *p.rebuild = over || capped || any_mis != 0;
+      if (over || capped || any_mis != 0) {
+        const int c = capped ? 0 : over ? 1 : 2;
+        p.causes_host[c] = ++p.causes[c];
+      }
     }
     return;
   }
@@ -394,7 +406,8 @@ __global__ void __launch_bounds__(ROW_THREADS)
 // dims: sy sz my s1y s2y mz s1z s2z lbx lby lbz nbx nby nb nkey nblocks
 // out_cap g ntiles rows inb maxin ncompact (my, mz as 32-bit patterns);
 // bufs: usable ovalid ovox of ores cap mis count hist rank first diff total
-// starts a cf cvox cvalid stats overflow misplaced rebuild.
+// starts a cf cvox cvalid stats overflow misplaced rebuild causes
+// causes_host (the last the device pointer of res_plan_host_counts' memory).
 // Every voxel array is 16-byte aligned, every mark array 4-byte aligned.
 extern "C" int res_plan(int nsp, void* const* sptrs, const int* sints,
                         const int* dims, void* const* bufs, void* stream) {
@@ -459,6 +472,8 @@ extern "C" int res_plan(int nsp, void* const* sptrs, const int* sints,
   p.overflow = (unsigned char*)bufs[b++];
   p.misplaced = (unsigned char*)bufs[b++];
   p.rebuild = (unsigned char*)bufs[b++];
+  p.causes = (long long*)bufs[b++];
+  p.causes_host = (long long*)bufs[b++];
   if (p.nblocks < 1 || p.nkey < 1 || p.ntiles < 1 || p.rows < 1)
     return (int)cudaErrorInvalidValue;
 
@@ -480,6 +495,17 @@ extern "C" int res_plan(int nsp, void* const* sptrs, const int* sints,
   res_plan_scatter_kernel<<<(p.rows + ROW_THREADS - 1) / ROW_THREADS + 1,
                             ROW_THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// n zeroed counts in mapped, page-locked host memory: *host is the host's
+// pointer to them, *device the kernels'.  Never freed (one a device and
+// process).
+extern "C" int res_plan_host_counts(int n, void** host, void** device) {
+  cudaError_t e = cudaHostAlloc(host, (size_t)n * sizeof(long long),
+                                cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e != cudaSuccess) return (int)e;
+  memset(*host, 0, (size_t)n * sizeof(long long));
+  return (int)cudaHostGetDevicePointer(device, *host, 0);
 }
 
 extern "C" const char* res_plan_error_string(int code) {

@@ -972,7 +972,8 @@ class Simulation:
         2-D and residency paths the collision ops run before the sort.
         The step calls utils.profile.marks' marker as each stage starts:
         eagerly under a profiler a ``vpic.<stage>`` range, while captured
-        the graph's stage map (step_graph._Capture.stage), else nothing.
+        the graph's stage map (step_graph._Capture.stage), else nothing;
+        eagerly it also calls ``observe(stage)`` where that is set.
 
         "push2d" (nz == 1): a bucket sort every pallas_sort_interval steps
         and the 2-D push kernel (fused_push_multi).  "push3d": with
@@ -1264,7 +1265,7 @@ class Simulation:
         push = dict(push2d=push2, push3d=push3, general=push_general)[path]
 
         def advance(state: SimState) -> SimState:
-            mark = PF.marks(advance.capture)
+            mark = PF.marks(advance.capture, advance.observe)
             out = stages(state, mark)
             mark(None)
             return out
@@ -1331,6 +1332,7 @@ class Simulation:
         advance.fields = trio_label
         advance.cadence = cadence
         advance.capture = None
+        advance.observe = None
         return advance
 
     def field_advance(self):

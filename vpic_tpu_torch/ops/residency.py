@@ -27,7 +27,11 @@ When the exchange would overflow (a brick's inflow exceeds its free slots,
 or more rows are routed than the compact bound), when a leaver exceeded the
 outbox cap, or when a kept lane sits outside its home brick, the step
 rebuckets with the full brick sort instead of merging.  Invariant after
-every step: every live lane is interior to its home brick.
+every step: every live lane is interior to its home brick.  Each plan that
+decides a rebucket counts it under its cause (``CAUSES``,
+:func:`rebuckets_by_cause`): on the card the plan's last kernel adds to
+device counters and writes them through to mapped host memory, so the
+host reads them with no work on the device.
 
 The JAX package's merge works around the TPU (``_prefix_excl`` triangular
 matmuls, ``_bdot`` split-bf16 one-hot dots, the ``BAND`` fast paths, the
@@ -63,6 +67,15 @@ PLAN_SMEM = 232448          # shared memory a block can use (a key a word)
 launches = 0
 # Kernel launches made by plan since the count was last reset.
 plan_launches = 0
+# The causes of a rebucket, the first that holds: leavers past a block's
+# outbox cap (ores > 0; they stay, misplaced), an exchange overflow
+# (Plan.overflow), misplaced lanes alone (Plan.misplaced).
+CAUSES = ("outbox", "exchange", "misplaced")
+# rebuckets by cause decided by plans on CPU tensors; on the card, per
+# device index: (device counters the plan kernel adds to, the address of
+# their mapped host copy, a view of that copy)
+_cpu_causes = torch.zeros(len(CAUSES), dtype=torch.int64)
+_card_causes: dict = {}
 
 
 def static_layout(capacities, block: int = BLOCK):
@@ -311,7 +324,50 @@ def _plan_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.res_plan_error_string.argtypes = [ctypes.c_int]
         lib.res_plan_error_string.restype = ctypes.c_char_p
+        lib.res_plan_host_counts.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.res_plan_host_counts.restype = ctypes.c_int
     return lib
+
+
+def _cause_counters(dev: torch.device):
+    """(device counters, device address of their host copy) on ``dev``,
+    made at the first plan there (not while a graph is captured: the
+    graphed step runs each cadence eagerly first)."""
+    if dev.index not in _card_causes:
+        lib = _plan_lib()
+        host, mapped = ctypes.c_void_p(), ctypes.c_void_p()
+        rc = lib.res_plan_host_counts(len(CAUSES), ctypes.byref(host),
+                                      ctypes.byref(mapped))
+        if rc != 0:
+            msg = lib.res_plan_error_string(rc).decode()
+            raise RuntimeError(f"res_plan_host_counts failed: {msg} ({rc})")
+        _card_causes[dev.index] = (
+            torch.zeros(len(CAUSES), dtype=torch.int64, device=dev),
+            mapped.value, (ctypes.c_int64 * len(CAUSES)).from_address(
+                host.value))
+    return _card_causes[dev.index][:2]
+
+
+def _count_cause(pl: "Plan", ores: torch.Tensor):
+    """A CPU plan's rebucket, if it decided one, under its cause, with
+    tensor operations: the step reads nothing more on the host."""
+    cause = torch.where(ores > 0, 0, torch.where(pl.overflow, 1, 2))
+    _cpu_causes.index_add_(0, cause.view(1),
+                           pl.rebuild.view(1).to(torch.int64))
+
+
+def rebuckets_by_cause() -> dict:
+    """{cause: rebuckets} that plans decided in this process, on every
+    device, by ``CAUSES``.  On the card these are the mapped host copies
+    as the device has written them so far: exact once its work is done
+    (after a synchronize)."""
+    out = _cpu_causes.tolist()
+    for _, _, host in _card_causes.values():
+        for k in range(len(CAUSES)):
+            out[k] += host[k]
+    return dict(zip(CAUSES, out))
 
 
 def plan(sps: Sequence[SpeciesState], emits, obx: Outbox, ores, homes,
@@ -325,12 +381,15 @@ def plan(sps: Sequence[SpeciesState], emits, obx: Outbox, ores, homes,
     CUDA tensors: four launches of csrc/res_plan.cu for every species
     (MAX_PLAN_SPECIES to a plan), bit for bit plan_ref, except that the
     compact rows past the routed total are left unwritten.  CPU tensors:
-    the plain version.  Any other device raises."""
+    the plain version.  Any other device raises.  A plan that decides a
+    rebucket counts it under its cause (``rebuckets_by_cause``)."""
     global plan_launches
     nblk = _check_plan(sps, emits, obx, ores, homes, spid, usable)
     dev = obx.vox.device
     if dev.type == "cpu":
-        return plan_ref(sps, emits, obx, ores, homes, spid, usable, g, inb)
+        out = plan_ref(sps, emits, obx, ores, homes, spid, usable, g, inb)
+        _count_cause(out, ores)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"plan: unsupported device {dev}")
     have = [k for k, n in enumerate(nblk) if n]
@@ -381,17 +440,20 @@ def plan(sps: Sequence[SpeciesState], emits, obx: Outbox, ores, homes,
         valid=torch.empty(ncompact, dtype=torch.bool, device=dev))
     stats = torch.empty(2, dtype=torch.int64, device=dev)
     flags = torch.empty(3, dtype=torch.bool, device=dev)
+    causes, causes_host = _cause_counters(dev)
     dims = [g.sy, g.sz, *_div_magic(g.sy), *_div_magic(g.sz),
             *(b.bit_length() - 1 for b in B), nbx, nby, nb, nkey, nblocks,
             out_cap, G, ntiles, M, inb, maxin, ncompact]
     bufs = [usable_t, obx.valid, obx.vox, obx.f, ores, cap, mis, count,
             hist, rank, first, diff, total, sa[0], sa[1], compact.f,
-            compact.vox, compact.valid, stats, flags[0], flags[1], flags[2]]
+            compact.vox, compact.valid, stats, flags[0], flags[1], flags[2],
+            causes]
     lib = _plan_lib()
     rc = lib.res_plan(
         len(have), c_array(ctypes.c_void_p, ptrs),
         c_array(ctypes.c_int, ints), c_array(ctypes.c_int, dims),
-        c_array(ctypes.c_void_p, [t.data_ptr() for t in bufs]),
+        c_array(ctypes.c_void_p, [t.data_ptr() for t in bufs]
+                + [causes_host]),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.res_plan_error_string(rc).decode()

@@ -42,7 +42,9 @@ graph for it.  While a profiler records, and only then, every replay's map
 goes to ``replay_log`` and the host ranges ``vpic.chunk`` (a ``run``),
 ``vpic.replay/<cadence>`` (a replay) and ``vpic.settle`` name what the
 host did; ``utils.profile.attribute`` lays the log over the device
-records.
+records.  ``rebucket_log`` keeps the residency rebuckets by cause over the
+same stretch of replays (``ops.residency.rebuckets_by_cause``, read on the
+host with no work on the device).
 
 A deck :func:`refusal` names runs the eager step, chosen from its features
 when the step is made, never as a fallback: a failed capture, replay or IF
@@ -111,14 +113,56 @@ class ReplayLog:
         if self.fresh:
             self.maps = []
             self.fresh = False
+            rebucket_log.begin()
         self.maps.append(stage_map)
+
+    def end(self):
+        """The profiled stretch is over: the next profiled replay starts
+        the log anew."""
+        if not self.fresh:
+            rebucket_log.end()
+        self.fresh = True
 
     def clear(self):
         self.maps = []
         self.fresh = True
+        rebucket_log.clear()
+
+
+class RebucketLog:
+    """The residency rebuckets by cause (``ops.residency.CAUSES``) of the
+    stretch of profiled replays ``replay_log`` holds: the counts as the
+    stretch began (its first replay) and as it ended (the next unprofiled
+    run), each read on the host from the plans' counters with no work on
+    the device, so exact where the device had finished its work by then
+    (as after a profiler's closing synchronize)."""
+
+    def __init__(self):
+        self.clear()
+
+    def begin(self):
+        self._first = RES.rebuckets_by_cause()
+        self._last = None
+
+    def end(self):
+        if self._first is not None and self._last is None:
+            self._last = RES.rebuckets_by_cause()
+
+    def clear(self):
+        self._first = self._last = None
+
+    def counts(self) -> Optional[dict]:
+        """{cause: rebuckets} over the stretch (up to now where it has
+        not ended), or None before a profiled replay."""
+        if self._first is None:
+            return None
+        last = self._last if self._last is not None else \
+            RES.rebuckets_by_cause()
+        return {k: last[k] - self._first[k] for k in RES.CAUSES}
 
 
 replay_log = ReplayLog()
+rebucket_log = RebucketLog()
 
 
 def refusal(sim) -> Optional[str]:
@@ -296,13 +340,17 @@ class _Graph:
     """One captured cadence: the graph, the counter deltas of a replay
     outside the IF nodes and inside each, the device tally of the branches
     taken, the replays not yet settled, the deposit counters the launches
-    write, the step's host diag entries, the stage map (_Capture.stage)
-    and the cadence's ``label`` ("plain", or its decisions "+"-joined)."""
+    write, the step's host diag entries, the stage map (_Capture.stage),
+    the cadence's ``label`` ("plain", or its decisions "+"-joined) and
+    ``replayed``, the map a replay logs (``utils.profile.replayed``: the
+    generator's prologue first, in the stage ``drew``, where the step drew
+    random numbers)."""
 
     def __init__(self, graph, deltas, branch_deltas, tally, deposits,
-                 host_diag, stages, label):
+                 host_diag, stages, label, drew=None):
         self.graph = graph
         self.stages = stages
+        self.replayed = P.replayed(stages, drew)
         self.label = label
         self.branch_deltas = branch_deltas
         self.deltas = deltas
@@ -349,7 +397,9 @@ class GraphedStep:
         self.body_pool = torch.cuda.graph_pool_handle()
         self.pool_refs = [0]
         self.state: Optional[SimState] = None
-        self.warm = {}              # cadence -> the warm-up step drew
+        # cadence -> the stage that first drew random numbers in its warm-up
+        # step (None: it drew none)
+        self.warm = {}
         self.graphs = {}
         self.captures = 0
         self.eager_steps = 0
@@ -368,7 +418,7 @@ class GraphedStep:
         a ``vpic.chunk`` range, each replay's map logged (replay_log)."""
         traced = P.profiling()
         if not traced:
-            replay_log.fresh = True
+            replay_log.end()
         with P.host_range("vpic.chunk", traced):
             state = self._adopt(state)
             for _ in range(n):
@@ -425,7 +475,7 @@ class GraphedStep:
                 return self._warm_up(state, cad)
             entry = self._capture(state, cad)
         if traced:
-            replay_log.add(entry.stages)
+            replay_log.add(entry.replayed)
             with P.host_range("vpic.replay/" + entry.label, True):
                 entry.replay()
         else:
@@ -441,11 +491,24 @@ class GraphedStep:
 
     def _warm_up(self, state: SimState, cad) -> SimState:
         gen = self.sim._generator
-        before = None if gen is None else gen.get_state()
-        out = self.advance(state)
+        drew = []
+        if gen is not None:
+            seen = [gen.get_state(), None]
+
+            def observe(stage):
+                # the stage that ends here drew if the generator moved
+                now = gen.get_state()
+                if not drew and not torch.equal(now, seen[0]):
+                    drew.append(seen[1])
+                seen[0], seen[1] = now, stage
+
+            self.advance.observe = observe
+        try:
+            out = self.advance(state)
+        finally:
+            self.advance.observe = None
         self._check_kept(state, out, "warm-up")
-        self.warm[cad] = gen is not None and not torch.equal(
-            before, gen.get_state())
+        self.warm[cad] = drew[0] if drew else None
         self.eager_steps += 1
         return out
 
@@ -457,7 +520,7 @@ class GraphedStep:
         deposits = {mod: mod.deposits for mod in DEPOSITS}
         tally = torch.zeros(len(BRANCHES), dtype=torch.int64, device=dev)
         graph = torch.cuda.CUDAGraph()
-        if self.warm[cad]:
+        if self.warm[cad] is not None:
             graph.register_generator_state(self.sim._generator)
         cap = _Capture(self, tally)
         before = _counts(self.sim)
@@ -475,7 +538,7 @@ class GraphedStep:
         entry = _Graph(graph, _minus(after, before), cap.deltas, tally,
                        deposits, {k: v for k, v in out.diag.items()
                                   if not isinstance(v, torch.Tensor)},
-                       tuple(cap.stages), label(cad))
+                       tuple(cap.stages), label(cad), self.warm[cad])
         self.graphs[cad] = entry
         self.captures += 1
         return entry

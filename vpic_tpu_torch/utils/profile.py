@@ -20,9 +20,10 @@ status_interval.  Here:
   CUDA graph it writes the graph's stage map (``Run``, ``If``;
   ``step_graph._Capture.stage``), since a replay runs no Python.  The
   graphed step logs the map of every replay made under a profiler
-  (``step_graph.replay_log``), and ``attribute`` lays those maps over the
-  device records of the window, which gives each stage its device time
-  inside the graphs.
+  (``step_graph.replay_log``; ``replayed`` puts the records PyTorch issues
+  before the launch of a graph that draws random numbers in front of
+  it), and ``attribute`` lays those maps over the device records of the
+  window, which gives each stage its device time inside the graphs.
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ HAND_KERNELS = ("fused_push2d_kernel", "fused_push3d_kernel", "merge_kernel",
                 "compact_kernel", "block_copy_kernel", "mailbox_kernel")
 # the device records of copies and fills
 COPIES = ("Memcpy", "Memset")
+# The device records PyTorch's CUDAGraph.replay makes before it launches a
+# graph whose capture drew from a registered generator: two int64 fills,
+# the generator's seed and offset for the replay (CUDAGeneratorState::
+# replay_prologue, PyTorch 2.3 and later).
+GENERATOR_PROLOGUE = "kk"
 
 Record = Tuple[str, float, float]
 
@@ -105,17 +111,18 @@ def _no_mark(stage: Optional[str]):
     pass
 
 
-def marks(capture=None):
+def marks(capture=None, observe=None):
     """The stage marker of one step: ``mark(stage)`` ends the stage that
     runs and starts ``stage``; ``mark(None)`` ends the last.  While the
     step is captured (``capture``: step_graph's _Capture) it is
     ``capture.stage``, which writes the graph's stage map; eagerly under a
     profiler it closes and opens ``vpic.<stage>`` record_function ranges;
-    else it does nothing (the profiler is asked once, here)."""
+    else it does nothing (the profiler is asked once, here).  Eagerly,
+    ``observe(stage)`` is called too at every mark."""
     if capture is not None:
         return capture.stage
     if not profiling():
-        return _no_mark
+        return observe or _no_mark
     rng = [None]
 
     def mark(stage: Optional[str]):
@@ -125,6 +132,8 @@ def marks(capture=None):
         if stage is not None:
             rng[0] = torch.autograd.profiler.record_function(PREFIX + stage)
             rng[0].__enter__()
+        if observe is not None:
+            observe(stage)
 
     return mark
 
@@ -168,6 +177,16 @@ def run_of(stage: str, kinds: str, names: Sequence[str]) -> Optional[Run]:
                      if c == "k" and (h := hand_of(n)) is not None))
 
 
+def replayed(stage_map, drew: Optional[str]) -> tuple:
+    """The map of a replay of a graph whose capture map is ``stage_map``:
+    where the graph draws random numbers, ``drew`` names the stage that
+    drew first, and the generator's prologue (``GENERATOR_PROLOGUE``) comes
+    first, in that stage; else the capture map."""
+    if drew is None:
+        return tuple(stage_map)
+    return (Run(drew, GENERATOR_PROLOGUE, ()),) + tuple(stage_map)
+
+
 def records(stage_map) -> int:
     """The device records of a map with every IF body counted."""
     return sum(len(it.kinds) if isinstance(it, Run) else records(it.body)
@@ -182,7 +201,8 @@ class Attribution:
     ``graph_gap_us`` the idle inside the claimed replays (between each
     one's first and last record); ``launch_gap_us`` the idle between
     consecutive claimed replays; ``replays`` claimed and ``misfits`` not;
-    ``taken`` the IF bodies found, by branch.  Times in the records'
+    ``taken`` the IF bodies found, by branch; ``stage_replays`` the claimed
+    replays that ran each stage (a record of it).  Times in the records'
     unit (microseconds)."""
     spans: List[Tuple[str, float, float]] = field(default_factory=list)
     stage_us: Dict[str, float] = field(default_factory=dict)
@@ -192,6 +212,7 @@ class Attribution:
     replays: int = 0
     misfits: int = 0
     taken: Dict[str, int] = field(default_factory=dict)
+    stage_replays: Dict[str, int] = field(default_factory=dict)
 
 
 class _Window:
@@ -266,24 +287,32 @@ def _lead(stage_map) -> Optional[Tuple[int, str]]:
 
 
 def _resync(w: _Window, log, r: int, i: int, first: bool):
-    """After replay r did not fit at record i: the first (replay, record,
-    fit) from which a later replay of the next few (r itself too where no
-    replay has fitted yet) fits its map, found at its first anchor."""
+    """After replay r did not fit at record i: the (replay, record, fit)
+    of the next few replays (r itself too where no replay has fitted yet)
+    whose map fits from the earliest record, found at its first anchor.
+    The earliest: a map can also fit a later replay's tail (a plain step's
+    over a firing step's records), so the first replay to fit is not
+    always the next to run."""
     longest = max(records(m) for m in log[r:r + 4])
+    best = None
     for r2 in range(r if first else r + 1, min(r + 4, len(log))):
         lead = _lead(log[r2])
         if lead is None:
             continue
         off, h = lead
         stop = min(len(w.recs), i + 4 * (r2 - r + 1) * longest)
+        if best is not None:
+            stop = min(stop, best[1] + off + 1)
         for q in range(i, stop):
             p = q - off
             if w.hand[q] != h or p < i or (r2 == r and p == i):
                 continue
             got = w.walk(log[r2], p)
             if got is not None:
-                return r2, p, got
-    return None
+                if best is None or p < best[1]:
+                    best = (r2, p, got)
+                break
+    return best
 
 
 def attribute(recs: Sequence[Record], log: Sequence[tuple],
@@ -325,6 +354,8 @@ def attribute(recs: Sequence[Record], log: Sequence[tuple],
                 out.spans[-1] = (stage, out.spans[-1][1], recs[b - 1][2])
             else:
                 out.spans.append((stage, recs[a][1], recs[b - 1][2]))
+        for stage in {stage for stage, _, _ in runs}:
+            out.stage_replays[stage] = out.stage_replays.get(stage, 0) + 1
         for br in taken:
             out.taken[br] = out.taken.get(br, 0) + 1
         busy = sum(b - a for a, b in _union(recs[i:end]))
