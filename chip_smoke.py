@@ -6,12 +6,12 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. build: the eight kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
-     move_p.cu, merge_p.cu, compact_block.cu with the compaction and the
-     block copy, mailbox.cu, field_beb.cu, graph_cond.cu) built for sm_90a,
-     one nvcc each, started
-     together; prints ptxas' registers / spills / shared memory, and the
-     push kernels' CUDA blocks per SM;
+  2. build: the ten kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
+     move_p.cu, merge_p.cu, res_plan.cu, compact_block.cu with the
+     compaction and the block copy, mailbox.cu, field_beb.cu, graph_cond.cu,
+     ta_collide.cu) built for sm_90a, one nvcc each, started
+     together; prints ptxas' registers / spills / shared memory (ta_collide's
+     kernels must spill nothing), and the push kernels' CUDA blocks per SM;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
      on the 64^2 x 64 ppc harris state at the main path's shapes, after the
      bucket sort; prints its deposit rounds that took the global path and
@@ -135,7 +135,8 @@ Phases, each of which must pass (any failure exits non-zero):
      masks, voxels and weights equal, momenta to 1e-5 max|u|; each timed
      (CUDA events, its device time and launches from torch.profiler, M
      particle-collisions/s), and one application must make no
-     synchronizing operation;
+     synchronizing operation; the route each op took (the T&A ops on the
+     card: csrc/ta_collide.cu's kernels);
  19. collisional reconnection: the deck at 32^3 x 128 ppc (2 species of
      2,097,152 particles, three T&A ops every 5 steps) on the residency
      path for 20 steps: the 3-D push and field_beb exactly once a step, a
@@ -149,7 +150,15 @@ Phases, each of which must pass (any failure exits non-zero):
      cause (residency.rebuckets_by_cause: they add up to the rebuckets
      after the push), and 6 steps traced around a firing, the firing
      step's replay claimed whole (utils.profile.attribute), its device ms
-     by stage;
+     by stage.  Before that window, on the state after the cycle: each of
+     the three ops, its hand kernels against the plain op from the same
+     draws (equal slots, momenta to 1e-5 max|u|) and both timed in turns
+     (CUDA events, device ms, launches), the plain electron-ion op's
+     index_add_ timed with every i-lane and with the paired live ones
+     alone, and the lanes the order passes sent down their wide path; the
+     20 steps must launch csrc/ta_collide.cu's kernels 27 times a firing
+     (an order pass of 6 a shuffled species and a pair kernel an op), every
+     op on its "cuda" route;
  20. emission: child_langmuir's apply on the diode (after 30 CPU steps)
      on the card and the CPU from the same draws (new lanes to 3e-5, rhob
      and acc to 1e-5 of their largest, one move_p launch); then the diode
@@ -1573,6 +1582,7 @@ def stochastic_phases(torch, counters, card, results):
     from vpic_tpu_torch.ops import fused_push3d as FP3
     from vpic_tpu_torch.ops import move_p as MP
     from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.ops import ta_collide as TA
     from vpic_tpu_torch.scripts import cuda_ms, device_kernels
     from vpic_tpu_torch.scripts import stochastic_checks as SC
 
@@ -1600,7 +1610,8 @@ def stochastic_phases(torch, counters, card, results):
                  f"{syncs[0].message}")
         ms = cuda_ms(call, 10)
         launches, dev = _device_sum(device_kernels(call, 5))
-        print(f"collision {name}: card == CPU with the same draws "
+        route = f"route {op.route}; " if hasattr(op, "route") else ""
+        print(f"collision {name}: {route}card == CPU with the same draws "
               f"(permutation, live, voxels, weights equal; momenta max abs "
               f"err {err:.3e}, tolerance {SC.MOM_RTOL} max|u|); {ms:.4f} ms "
               f"(CUDA events, draws included) = {n / ms / 1e3:.1f} M "
@@ -1664,6 +1675,14 @@ def stochastic_phases(torch, counters, card, results):
     if launches[RES.KERNEL] != RECON_STEPS - post:
         fail(f"reconnection: {launches[RES.KERNEL]} merges with {post} "
              f"rebuckets after the push in {RECON_STEPS} steps")
+    # an order pass a species an op shuffles and a pair kernel an op
+    ta_firing = sum(TA.ORDER_LAUNCHES * len(set(op.pair)) + 1
+                    for op in sim.collision_ops)
+    if launches[TA.KERNEL] != ta_firing * firings or \
+            any(op.route != "cuda" for op in sim.collision_ops):
+        fail(f"reconnection: the T&A kernels launched {launches[TA.KERNEL]} "
+             f"times in {firings} firings of {ta_firing}; routes "
+             f"{[op.route for op in sim.collision_ops]}")
     if sim.host_syncs != EAGER[sim]:
         fail(f"reconnection: {sim.host_syncs} host syncs in {RECON_STEPS} "
              f"steps, {EAGER[sim]} of them eager")
@@ -1679,6 +1698,9 @@ def stochastic_phases(torch, counters, card, results):
         sim, launches, RECON_STEPS, "reconnection")
     results[FP3.KERNEL]["launches"] += launches[FP3.KERNEL]
     results[RES.KERNEL]["launches"] += launches[RES.KERNEL]
+    print(f"run reconnection: the T&A kernels launched {launches[TA.KERNEL]} "
+          f"times in {firings} firings ({ta_firing} a firing), routes "
+          f"{[op.route for op in sim.collision_ops]}")
     # one collision cycle under the profiler: launches and device time a
     # step, and the device's busy share against the host clock's ms/step
     step = step_of(sim)
@@ -1725,6 +1747,62 @@ def stochastic_phases(torch, counters, card, results):
           f"{coll_dev:.3f} ms in {coll_launches:.0f} launches = "
           f"{100 * coll_dev / tau / step_dev:.1f} % of the device time a "
           f"step amortized ({card})")
+    # each op by route on the state after the cycle, from the same draws:
+    # the hand kernels against the plain op, in turns; the plain
+    # interspecies op's j-side index_add_ with its dead i-lanes and without;
+    # a firing's bound counted as benchmark/metrics/collision_roofline_pct
+    # counts it (9 words a live lane an op touches, 4 a pair)
+    torch.cuda.synchronize()
+    wide0 = TA.wide_lanes()
+    sp_in = list(stage_in)
+    ta = dict(err=0.0, ms=0.0, plain_ms=0.0, words=0)
+    for op in sim.collision_ops:
+        draws = op.draw(sim._generator, sp_in)
+        try:
+            err = SC.compare_routes(op, sp_in, g, draws)
+        except AssertionError as e:
+            fail(f"reconnection op {op.pair}, hand vs plain: {e}")
+        t = SC.time_routes(op, sp_in, g, draws)
+        i, j = op.pair
+        ni, nj = int(sp_in[i].np), int(sp_in[j].np)
+        ta["words"] += ni * 9 + ni // 2 * 4 if i == j else \
+            (ni + nj) * 9 + ni * 4
+        ta["err"] = max(ta["err"], err)
+        ta["ms"] += t["cuda"][0]
+        ta["plain_ms"] += t["plain"][0]
+        print(f"run reconnection: op {op.pair} route {op.route}: hand "
+              f"kernels {t['cuda'][0]:.3f} ms (CUDA events), device "
+              f"{t['cuda'][1]:.4f} ms in {t['cuda'][2]:.0f} launches; plain "
+              f"{t['plain'][0]:.3f} ms, device {t['plain'][1]:.4f} ms in "
+              f"{t['plain'][2]:.0f} launches (in turns); equal slots, "
+              f"momenta max abs err {err:.3e} ({card})")
+        if op.pair[0] != op.pair[1]:
+            ia = SC.time_index_add(op, sp_in, g, draws)
+            print(f"run reconnection: op {op.pair}'s plain index_add_ (one "
+                  f"component): every i-lane ({ia['lanes']}, "
+                  f"{ia['at_voxel0']} at voxel 0's first j-slot) "
+                  f"{ia['unmasked'][0]:.3f} ms, device "
+                  f"{ia['unmasked'][1]:.4f} ms; the {ia['paired']} paired "
+                  f"live i-lanes alone {ia['masked'][0]:.3f} ms, device "
+                  f"{ia['masked'][1]:.4f} ms ({card})")
+        sp_in = op.apply_plain(sp_in, g, draws)[0]
+    torch.cuda.synchronize()
+    wide = {k: v - wide0[k] for k, v in TA.wide_lanes().items()}
+    print(f"run reconnection: order-pass lanes on the wide path over these "
+          f"ops' hand runs {wide}; since the process began "
+          f"{TA.wide_lanes()}")
+    bms, bby = bound_ms(4 * ta["words"], 0)
+    results[TA.KERNEL] = dict(
+        name=TA.KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/ta_collide.cu",
+        replaces="none: vpic_tpu/collision.py's binary op is plain jnp",
+        launches=launches[TA.KERNEL], max_abs_err=ta["err"], ms=ta["ms"],
+        plain_ms=ta["plain_ms"], bound_ms=bms, bound_by=bby,
+        library_ms=None)
+    print(f"run reconnection: a firing's three ops, hand kernels "
+          f"{ta['ms']:.3f} ms, plain {ta['plain_ms']:.3f} ms (CUDA events, "
+          f"draws excluded); bound {bms:.4f} ms ({4e-6 * ta['words']:.1f} MB, "
+          f"{100 * bms / ta['ms']:.1f} % of the hand kernels' time)")
     # a firing step's replay under the profiler, in a window of 6 steps that
     # starts on the step before it (the profiler may drop a few records of
     # a window's first replay; such a window is profiled again, up to
@@ -1761,7 +1839,7 @@ def stochastic_phases(torch, counters, card, results):
     if fired != 1 or got.misfits > 1:
         fail(f"reconnection: the firing step's replay is not claimed whole: "
              f"{fired} firing replays claimed, {got.misfits} misfits")
-    del sim, state, box, stage_in, step, prof, fprof
+    del sim, state, box, stage_in, step, prof, fprof, sp_in
     drift_recon = drift
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2637,6 +2715,7 @@ def main():
     from vpic_tpu_torch.ops import interp as I
     from vpic_tpu_torch.ops import move_p as MP
     from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.ops import ta_collide as TA
     from vpic_tpu_torch import step_graph as SG
     from vpic_tpu_torch.scripts import card as card_and_power
     from vpic_tpu_torch.scripts import cuda_ms, device_ms, kernel_device_ms
@@ -2655,10 +2734,11 @@ def main():
                 C.KERNEL: (C, "launches"),
                 C.COPY_KERNEL: (C, "copy_launches"),
                 C.MAILBOX_KERNEL: (C, "mailbox_launches"),
-                FF.KERNEL: (FF, "launches"), SG.KERNEL: (SG, "launches")}
+                FF.KERNEL: (FF, "launches"), SG.KERNEL: (SG, "launches"),
+                TA.KERNEL: (TA, "launches")}
     sources = [FP.KERNEL, FP3.KERNEL, MP.KERNEL, RES.KERNEL,
                RES.PLAN_KERNEL, C.KERNEL, C.MAILBOX_KERNEL, FF.KERNEL,
-               SG.KERNEL]
+               SG.KERNEL, TA.KERNEL]
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
@@ -2672,6 +2752,11 @@ def main():
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {name}: " + line.strip())
+    ta_spills = [ln for ln in _build.build_log(TA.KERNEL).splitlines()
+                 if "spill stores" in ln]
+    if not ta_spills or any("0 bytes spill stores" not in ln
+                            for ln in ta_spills):
+        fail(f"{TA.KERNEL}'s kernels spill: {ta_spills}")
     per_sm = [(FP._kernel_lib().fused_push2d_blocks_per_sm(w),
                FP3._kernel_lib().fused_push3d_blocks_per_sm(w))
               for w in (0, 1)]

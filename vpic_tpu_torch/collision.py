@@ -24,6 +24,12 @@ hands a key to a user callable, the port hands it the raw variate of the
 kind the model declares: ``BinaryModel.variate`` for ``sample_angle``, the
 collide callback's ``variates`` for a unary op.
 
+On CUDA tensors a Takizuka-Abe op (``make_takizuka_abe_op``, one pairing
+round) runs the hand-written kernels of ``ops/ta_collide``: an
+order pass a shuffled species and one pair kernel, bit for bit the plain
+op's permutation; every other model, and every op on the CPU, runs the
+plain op below, the kernels' reference.  ``op.route`` says which ran last.
+
 Nothing here reads the device on the host: the ops add no synchronization
 to a step.  All arithmetic is float32 in the JAX package's operation
 order.
@@ -33,11 +39,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from .grid import Grid
+from .ops import ta_collide as TA
 from .ops.push import gather_sp_rows
 from .state import SpeciesParams, SpeciesState
 
@@ -168,7 +175,7 @@ class BinaryModel:
 def make_binary_op(model: BinaryModel, spi_idx: int, spj_idx: int,
                    spi: SpeciesParams, spj: SpeciesParams,
                    sample: float = 1.0, interval: int = 1,
-                   pr_rounds: int = 1):
+                   pr_rounds: int = 1, *, _ta_var: Optional[Callable] = None):
     """A collision op for ``Simulation.collision_ops``:
     ``op(species, f, g, step, generator, diag=None)`` returns the species
     list, or (species, diag) when given a diag dict, which then carries the
@@ -181,7 +188,12 @@ def make_binary_op(model: BinaryModel, spi_idx: int, spj_idx: int,
 
     ``op.draw(generator, species)`` -> a list of one dict of variates per
     round; ``op.apply(species, g, draws)`` -> (species, large-pr count, a
-    0-d int32 tensor)."""
+    0-d int32 tensor).  ``apply`` runs ops/ta_collide's kernels on CUDA
+    tensors for a Takizuka-Abe op with one round (``_ta_var``, its
+    sigma^2 v_r^3 from the model's params, passed by make_takizuka_abe_op
+    alone, whose rate and angle the kernels compute as fixed arithmetic),
+    else the plain op, ``op.apply_plain``; ``op.route`` is "cuda" or
+    "plain", the route of the latest apply."""
     mi, mj = spi.m, spj.m
     mu = mi * mj / (mi + mj)
     intra = spi_idx == spj_idx
@@ -281,7 +293,7 @@ def make_binary_op(model: BinaryModel, spi_idx: int, spj_idx: int,
         species[spj_idx] = sj
         return species, nlarge
 
-    def apply(species, g: Grid, draws):
+    def apply_plain(species, g: Grid, draws):
         nlarge = torch.zeros((), dtype=torch.int32,
                              device=species[spi_idx].ux.device)
         for r, d in enumerate(draws):
@@ -289,6 +301,33 @@ def make_binary_op(model: BinaryModel, spi_idx: int, spj_idx: int,
             if n is not None:
                 nlarge = nlarge + n
         return species, nlarge
+
+    hand = _ta_var is not None and pr_rounds == 1
+
+    def apply_cuda(species, g: Grid, draws):
+        (d,) = draws
+        c = TA.Constants(g.dt * interval / g.dV, sample, g.cvac,
+                         _ta_var(model.params), mu / mi, mu / mj,
+                         2.0 * math.pi)
+        species = list(species)
+        si = species[spi_idx]
+        oi = TA.shuffle_order(si.live, si.i, d["shuf_i"], g.nv)
+        if intra:
+            species[spi_idx] = TA.collide(si, oi, None, None, d, c)
+        else:
+            sj = species[spj_idx]
+            oj = TA.shuffle_order(sj.live, sj.i, d["shuf_j"], g.nv)
+            species[spi_idx], species[spj_idx] = TA.collide(si, oi, sj, oj,
+                                                            d, c)
+        return species, torch.zeros((), dtype=torch.int32,
+                                    device=si.ux.device)
+
+    def apply(species, g: Grid, draws):
+        if hand and species[spi_idx].ux.is_cuda:
+            op.route = "cuda"
+            return apply_cuda(species, g, draws)
+        op.route = "plain"
+        return apply_plain(species, g, draws)
 
     def op(species, f, g: Grid, step, generator, diag=None):
         species = list(species)
@@ -312,6 +351,8 @@ def make_binary_op(model: BinaryModel, spi_idx: int, spj_idx: int,
     op.pair = (spi_idx, spj_idx)
     op.draw = draw
     op.apply = apply
+    op.apply_plain = apply_plain
+    op.route = None
     op.tally_key = tally_key if tally else None
     if tally:
         op.diag_init = lambda device="cpu": {
@@ -384,6 +425,9 @@ def make_takizuka_abe_op(spi_idx: int, spj_idx: int, spi: SpeciesParams,
     pref = ((qi * qj) ** 2) * log_lambda / \
         (8.0 * math.pi * g.eps0 ** 2 * mu ** 2)
 
+    def var_scale(p):
+        return pref * p["n_local"] * g.dt * interval
+
     def rate(ur, p):
         # every sampled pair "collides": a rate that saturates the
         # probability (w_max * pr_norm * 1e30 stays finite in float32)
@@ -391,7 +435,7 @@ def make_takizuka_abe_op(spi_idx: int, spj_idx: int, spi: SpeciesParams,
 
     def angle(normal, ur, p, pr):
         m = torch.clamp(ur, min=1e-12)
-        var = _rdiv(pref * p["n_local"] * g.dt * interval, m * m * m)
+        var = _rdiv(var_scale(p), m * m * m)
         delta = torch.sqrt(var) * normal
         # comoving pairs do not scatter; huge delta is full backscatter
         delta = torch.where(ur > 1e-12, torch.clamp(delta, -1e3, 1e3), 0.0)
@@ -402,7 +446,7 @@ def make_takizuka_abe_op(spi_idx: int, spj_idx: int, spi: SpeciesParams,
     model = BinaryModel("takizuka-abe", rate, angle, dict(n_local=n0),
                         saturates=True, variate="normal")
     return make_binary_op(model, spi_idx, spj_idx, spi, spj,
-                          sample=sample, interval=interval)
+                          sample=sample, interval=interval, _ta_var=var_scale)
 
 
 # ---------------------------------------------------------------------------

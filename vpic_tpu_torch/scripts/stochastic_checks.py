@@ -23,6 +23,7 @@ import torch
 
 from .. import collision as C
 from ..grid import partition_periodic_box
+from ..ops import ta_collide as TA
 from ..state import FIELD_NAMES, SPECIES_NAMES, SpeciesParams, SpeciesState
 
 MOM_RTOL = 1e-5
@@ -134,6 +135,95 @@ def compare_collision_op(op, species, g, device, seed: int = 0) -> float:
             err = max(err, _close(getattr(a, n), getattr(b, n), MOM_RTOL,
                                   f"species {k}.{n}"))
     return err
+
+
+def compare_order(sp, key, g) -> None:
+    """The T&A kernels' order pass (ops/ta_collide.shuffle_order) of ``sp``
+    (on the card) with shuffle keys ``key`` against the plain op's
+    shuffle_sort and cell_partition on the same card: the permutation and
+    the voxels' starts and counts equal."""
+    got = TA.shuffle_order(sp.live, sp.i, key, g.nv)
+    shuffled, perm = C.shuffle_sort(sp, key)
+    start, count = C.cell_partition(shuffled, g)
+    first, cnt = TA.voxel_partition(got, g.nv)
+    if not torch.equal(got.order.long(), perm):
+        raise AssertionError("the order pass's permutation differs")
+    if not (torch.equal(first.long(), start)
+            and torch.equal(cnt.long(), count)):
+        raise AssertionError("the order pass's voxel partition differs")
+
+
+def compare_routes(op, species, g, draws) -> float:
+    """``op.apply`` (a T&A op on card tensors: its hand kernels, route
+    "cuda") against ``op.apply_plain`` on the same card from the same
+    ``draws``: the shuffled slots' live masks, voxels, weights and offsets
+    equal, momenta to MOM_RTOL max|u| (the plain op's j sums are float
+    atomics).  Returns the largest momentum error."""
+    hand = _apply(op, species, g, draws)
+    if op.route != "cuda":
+        raise AssertionError(f"the op took the {op.route} route on the card")
+    plain = op.apply_plain(species, g, draws)[0]
+    err = 0.0
+    for k, (a, b) in enumerate(zip(plain, hand)):
+        for n in ("live", "i", "w", "dx", "dy", "dz"):
+            if not torch.equal(getattr(a, n), getattr(b, n)):
+                raise AssertionError(f"species {k}.{n} differs")
+        for n in ("ux", "uy", "uz"):
+            err = max(err, _close(getattr(a, n), getattr(b, n), MOM_RTOL,
+                                  f"species {k}.{n}"))
+    return err
+
+
+def _turns(fns, n: int) -> dict:
+    """{name: (CUDA-event ms, device ms, launches)} per call of each of
+    ``fns`` ({name: fn}), taken in turns: forward, then backward, the two
+    readings of each averaged."""
+    from . import cuda_ms, device_kernels
+    got = {k: [] for k in fns}
+    for names in (list(fns), list(fns)[::-1]):
+        for k in names:
+            kern = device_kernels(fns[k], n)
+            got[k].append((cuda_ms(fns[k], n),
+                           sum(ms for _, ms in kern.values()),
+                           sum(c for c, _ in kern.values())))
+    return {k: tuple(sum(v) / len(v) for v in zip(*r)) for k, r in
+            got.items()}
+
+
+def time_routes(op, species, g, draws, n: int = 5) -> dict:
+    """The op's apply by each route on the card, in turns (plain, hand,
+    hand, plain): {"cuda": (CUDA-event ms, device ms, launches), "plain":
+    ...} per apply, from the same draws."""
+    return _turns({"plain": lambda: op.apply_plain(species, g, draws),
+                   "cuda": lambda: op.apply(species, g, draws)}, n)
+
+
+def time_index_add(op, species, g, draws, n: int = 5) -> dict:
+    """The plain interspecies op's j-side scatter, one momentum component's
+    ``index_add_`` (the plain op runs three): as the op runs it, every
+    i-lane adding into its partner slot (a dead i-lane, voxel 0 after the
+    shuffle's gather, at voxel 0's j-lanes), and masked to the paired live
+    i-lanes.  Returns {"unmasked": (CUDA-event ms, device ms, launches),
+    "masked": ..., "lanes": i-lanes, "paired": paired i-lanes,
+    "at_voxel0": i-lanes whose partner index is voxel 0's first}."""
+    i, j = op.pair
+    d = draws[0]
+    si = C.shuffle_sort(species[i], d["shuf_i"])[0]
+    sj = C.shuffle_sort(species[j], d["shuf_j"])[0]
+    start_i, _ = C.cell_partition(si, g)
+    start_j, cnt_j = C.cell_partition(sj, g)
+    vox = si.i.long()
+    rank = torch.arange(si.capacity, device=vox.device) - start_i[vox]
+    ib = start_j[vox] + rank % torch.clamp(cnt_j[vox], min=1)
+    same = si.live & (cnt_j[vox] > 0)
+    src = torch.full_like(si.ux, 1e-7)
+    u = sj.ux.clone()
+    ib_m, src_m = ib[same], src[same]
+    got = _turns({"unmasked": lambda: u.index_add_(0, ib, src),
+                  "masked": lambda: u.index_add_(0, ib_m, src_m)}, n)
+    got.update(lanes=si.capacity, paired=int(same.sum()),
+               at_voxel0=int((ib == start_j[0]).sum()))
+    return got
 
 
 def compare_lanes(a, b, atol, what, acc=None, rhob=None, w_rtol=0.0):

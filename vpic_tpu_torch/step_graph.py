@@ -69,6 +69,7 @@ from .ops import fused_push as FP
 from .ops import fused_push3d as FP3
 from .ops import move_p as MP
 from .ops import residency as RES
+from .ops import ta_collide as TA
 from .state import FIELD_NAMES, SPECIES_NAMES, SimState
 from .utils import profile as P
 
@@ -83,7 +84,7 @@ launches = 0
 # residency relayouts (Simulation.relayouts, the last entry)
 COUNTERS = ((FP, "launches"), (FP3, "launches"), (RES, "launches"),
             (RES, "plan_launches"), (FF, "launches"), (MP, "launches"), (C, "launches"),
-            (C, "copy_launches"), (C, "mailbox_launches"),
+            (C, "copy_launches"), (C, "mailbox_launches"), (TA, "launches"),
             (sys.modules[__name__], "launches"))
 # the push kernels' device deposit counts, written by the captured launches
 DEPOSITS = (FP, FP3)
