@@ -63,14 +63,10 @@ Phases, each of which must pass (any failure exits non-zero):
      device time;
  10. field trio: the entry point vpic_tpu_torch.scripts.field_fuse_proto
      (its main()) at the 64^2, 32^3, 128^2, 256^2 and 64^3 harris fields
-     (4 ppc): each instance of field_beb that takes the grid (the grid
-     instance, the step's, always; the cluster instance where its slabs
-     fit, which must be the first three) against the plain trio to 1e-6
-     abs on each output, exactly one launch per trio;
-     each timed with CUDA events and torch.profiler, with its bound; where
-     build/parent holds the parent commit's tree (git archive), its
-     field_beb kernel too, in turns (parent, instances, plain, plain,
-     instances, parent);
+     (4 ppc): field_beb against the plain trio to 1e-6 abs on each output,
+     exactly one launch per trio; both timed with CUDA events and
+     torch.profiler, in turns (kernel, plain, plain, kernel), with the
+     bound;
  11. lpi: the lpi deck at its published width (128 x 32 cells, 16 ppc in the
      slab: 2 species of 32,768 particles; absorbing field walls, reflux
      particle walls, the laser through user_field_injection) on the card:
@@ -315,11 +311,8 @@ AGED_LANES = 3000
 # 1e-4 is ten times inside it and 100 times the 10-step card-vs-CPU limit.
 RESTART_RTOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# the parent commit's tree (git archive), where present: phase 10 times its
-# field_beb kernel in turns with this tree's
-PARENT = os.path.join(ROOT, "build", "parent")
-# the field trio's entry point: the step's 2-D and 3-D grids, 128^2 (the
-# largest 2-D grid of the cluster instance), 256^2 and 64^3 (beyond it)
+# the field trio's entry point: the step's 2-D and 3-D grids, 128^2, 256^2
+# and 64^3
 TRIO_SIZES = ([], ["--nx", "32", "--ny", "32", "--nz", "32"],
               ["--nx", "128", "--ny", "128"], ["--nx", "256", "--ny", "256"],
               ["--nx", "64", "--ny", "64", "--nz", "64"])
@@ -822,18 +815,10 @@ def plain_trio(sim, launches, what):
 
 def field_trio_phase(torch, RF, FF, counters, card, beb_main):
     """Phase 10: the entry point scripts.field_fuse_proto at TRIO_SIZES,
-    each instance that takes the grid (and the parent tree's kernel in
-    turns, where build/parent holds one) against the plain trio; returns
-    field_beb's entry of the kernels' line, with the main path's launches
-    (phases 5 and 8)."""
-    parent = os.path.isfile(os.path.join(PARENT, "vpic_tpu_torch", "csrc",
-                                         "field_beb.cu"))
-    if not parent:
-        print("field trio: no parent tree under build/parent; the parent's "
-              "kernel is not timed")
+    the kernel against the plain trio; returns field_beb's entry of the
+    kernels' line, with the main path's launches (phases 5 and 8)."""
     reset_counts(counters)
-    trio = [RF.main(a + (["--parent", PARENT] if parent else []))
-            for a in TRIO_SIZES]
+    trio = [RF.main(a) for a in TRIO_SIZES]
     launches = read_counts(counters)
     calls = sum(r["kernel_calls"] for r in trio)
     print(f"run field trio: launches {launches}, {calls} fused trios")
@@ -845,34 +830,23 @@ def field_trio_phase(torch, RF, FF, counters, card, beb_main):
         # in each half advance_b, 3 x 15 in advance_e)
         bms, _ = bound_ms((12 + 9) * 4 * nvox, 81 * nvox)
         r["bound"] = (bms, (12 + 9) * 4 * nvox, 81 * nvox)
-        cluster = tuple(r["shape"]) in ((3, 66, 66), (34, 34, 34),
-                                        (3, 130, 130))
-        if r["instance"] != "grid" or \
-                ("cluster" in r["instances"]) != cluster:
-            fail(f"field trio {r['shape']}: step's instance "
-                 f"{r['instance']}, ran {sorted(r['instances'])}")
+        if not r["device_ms"] > 0:
+            fail(f"field trio {r['shape']}: the profiler saw no kernel")
+        if not r["max_abs_err"] <= 1e-6:
+            fail(f"field trio {r['shape']}: max abs err {r['max_abs_err']}")
+        if r["launches_per_trio"] != 1:
+            fail(f"field trio {r['shape']}: {r['launches_per_trio']} "
+                 "launches a trio")
         print(f"timing ({card}): field trio {r['shape']}: plain "
               f"{r['plain_ms'][0]:.5f} / {r['plain_ms'][1]:.5f} ms (device "
               f"{r['plain_device_ms']:.5f}, {r['plain_launches_per_trio']:.0f}"
               f" launches) per trio; bound {bms:.6f} ms "
-              f"({r['bound'][1] / 1e6:.2f} MB); step's instance "
-              f"{r['instance']}")
-        for w, x in r["instances"].items():
-            if not x["device_ms"] > 0:
-                fail(f"field trio {r['shape']} {w}: the profiler saw no "
-                     "kernel")
-            if not x["max_abs_err"] <= 1e-6:
-                fail(f"field trio {r['shape']} {w}: max abs err "
-                     f"{x['max_abs_err']}")
-            if w != "parent" and x["launches_per_trio"] != 1:
-                fail(f"field trio {r['shape']} {w}: "
-                     f"{x['launches_per_trio']} launches a trio")
-            print(f"  {w}: {x['ms'][0]:.5f} / {x['ms'][1]:.5f} ms on CUDA "
-                  f"events, device {x['device_ms']:.6f} ms "
-                  f"({100 * bms / x['device_ms']:.1f} % of the bound), max "
-                  f"abs err {x['max_abs_err']:.3e} (best of 3 windows of "
-                  "100; turns: parent, instances, plain, plain, instances, "
-                  "parent)")
+              f"({r['bound'][1] / 1e6:.2f} MB)")
+        print(f"  field_beb: {r['ms'][0]:.5f} / {r['ms'][1]:.5f} ms on CUDA "
+              f"events, device {r['device_ms']:.6f} ms "
+              f"({100 * bms / r['device_ms']:.1f} % of the bound), max abs "
+              f"err {r['max_abs_err']:.3e} (best of 3 windows of 100; turns: "
+              "kernel, plain, plain, kernel)")
     r = trio[0]
     _, nbytes, flops = r["bound"]
     bms, bby = bound_ms(nbytes, flops)
@@ -2010,8 +1984,8 @@ def compare_push3d_plain(torch, PT, FP3, g, species, fcoef, qms, what,
 
 
 def compare_beb(torch, FF, sim, state, what):
-    """field_beb (the step's instance) against the plain trio on clones of
-    the state's fields: bit for bit on every array, one launch."""
+    """field_beb against the plain trio on clones of the state's fields:
+    bit for bit on every array, one launch."""
     from vpic_tpu_torch.scripts import same_bits
     from vpic_tpu_torch.state import FIELD_NAMES
     f = state.fields

@@ -9,10 +9,9 @@ Tolerances: compaction, block copy and mailbox bit for bit (pure data
 movement, a -0.0 and a NaN included), each one kernel launch a call (the
 mailbox into a given ``out=``); the field trio to 1e-6 abs on each of its 9 outputs,
 ghost planes included (the prototype's own bound; the kernel rounds every
-operation as the plain version does, so 0 is expected), in both instances
-(the grid one, the step's, everywhere; the cluster one where its slabs
-fit) at the step's grids and beyond, with every face rule the kernel
-takes, one launch a trio."""
+operation as the plain version does, so 0 is expected), at the step's
+grids and beyond, with every face rule the kernel takes, one launch a
+trio."""
 
 import dataclasses
 
@@ -196,12 +195,11 @@ def _clone(f):
         f, **{n: getattr(f, n).clone() for n in ST.FIELD_NAMES})
 
 
-def _check_beb(g, f, m, damp, which):
-    """One trio of instance ``which`` against the plain trio: every field
-    to 1e-6 abs (0 expected), jf untouched, one launch of that instance."""
+def _check_beb(g, f, m, damp):
+    """One trio against the plain trio: every field to 1e-6 abs (0
+    expected), jf untouched, one launch of the kernel."""
     fk, fr = _clone(f), _clone(f)
-    beb = FF.make_beb(g, m, damp, which)
-    assert beb.instance == which
+    beb = FF.make_beb(g, m, damp)
     n0 = FF.launches
     out = beb(fk)
     FF.beb_ref(fr, g, m, damp)
@@ -209,17 +207,15 @@ def _check_beb(g, f, m, damp, which):
     assert out is fk and FF.launches == n0 + 1
     for n in FF.FIELDS:
         err = float((getattr(fk, n) - getattr(fr, n)).abs().max())
-        assert err <= 1e-6, f"{which} {n}: max abs err {err}"
+        assert err <= 1e-6, f"{n}: max abs err {err}"
     assert torch.equal(fk.jfx, f.jfx)
-    _one_launch(lambda: beb(fk), f"field_beb_{which}_kernel")
+    _one_launch(lambda: beb(fk), "field_beb_grid_kernel")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_field_beb_kernel_matches_plain(cuda, case):
     g, f, m, damp = CASES[case](cuda)
-    assert FF.cluster_fits((g.nx, g.ny, g.nz))
-    for which in FF.INSTANCES:
-        _check_beb(g, f, m, damp, which)
+    _check_beb(g, f, m, damp)
 
 
 # Face sets: every rule _GHOST takes on both sides of an axis, and mixed.
@@ -238,9 +234,7 @@ SIZES = [(64, 64, 1), (128, 128, 1), (32, 32, 32), (37, 23, 11),
 def test_field_beb_instances_match_plain_at_size(cuda, n, faces):
     """Random fields (a NaN and an inf in E and cB: the flat axis's 0 x
     products must give what the plain trio gives) on the step's grids, an
-    odd grid and the two large ones; the cluster instance wherever its
-    slabs fit (64^2, 128^2, 32^3 and the odd grid), the grid instance (the
-    step's) everywhere."""
+    odd grid and three larger ones."""
     g = GT.partition_periodic_box(0, 0, 0, 1.0, 0.8, 0.6, *n, dt=0.01,
                                   cvac=1.0, eps0=1.0)
     for face, bc in enumerate(FACES[faces]):
@@ -256,19 +250,16 @@ def test_field_beb_instances_match_plain_at_size(cuda, n, faces):
         decayx=0.91, decayy=0.93, decayz=0.95, drivex=0.97, drivey=0.96,
         drivez=0.94, rmux=0.8, rmuy=0.85, rmuz=0.9, nonconductive=1.0,
         epsx=1.2, epsy=1.1, epsz=1.3).items()})
-    fits = FF.cluster_fits(n)
-    assert fits == (n not in ((256, 256, 1), (64, 64, 64)))
     fr = FF.beb_ref(_clone(f), g, m, 0.01)
-    for inst in ("grid", "cluster") if fits else ("grid",):
-        fk = FF.make_beb(g, m, 0.01, inst)(_clone(f))
-        torch.cuda.synchronize()
-        for k in FF.FIELDS:
-            a, b = getattr(fk, k), getattr(fr, k)
-            assert torch.equal(a.isnan(), b.isnan()), f"{inst} {k}: NaNs"
-            ok = ~a.isnan()
-            err = float((a[ok] - b[ok]).abs().nan_to_num(0.0).max())
-            assert torch.equal(a[ok].isinf(), b[ok].isinf()), f"{inst} {k}"
-            assert err <= 1e-6, f"{inst} {k}: max abs err {err}"
+    fk = FF.make_beb(g, m, 0.01)(_clone(f))
+    torch.cuda.synchronize()
+    for k in FF.FIELDS:
+        a, b = getattr(fk, k), getattr(fr, k)
+        assert torch.equal(a.isnan(), b.isnan()), f"{k}: NaNs"
+        ok = ~a.isnan()
+        err = float((a[ok] - b[ok]).abs().nan_to_num(0.0).max())
+        assert torch.equal(a[ok].isinf(), b[ok].isinf()), k
+        assert err <= 1e-6, f"{k}: max abs err {err}"
 
 
 def test_failed_launch_raises(cuda, monkeypatch):
@@ -278,19 +269,14 @@ def test_failed_launch_raises(cuda, monkeypatch):
     beb = FF.make_beb(g, m, damp)
     big = torch.zeros((16, 256), device=cuda)
     offs = torch.tensor([0, 128], dtype=torch.int32, device=cuda)
-    cluster_beb = FF.make_beb(g, m, damp, "cluster")
     monkeypatch.setattr(FF, "THREADS", 2048)
-    monkeypatch.setattr(FF, "CLUSTER_THREADS", 2048)
     monkeypatch.setattr(C, "THREADS", 2048)
     with pytest.raises(RuntimeError, match="launch failed"):
         beb(f)
     with pytest.raises(RuntimeError, match="launch failed"):
-        cluster_beb(f)
-    with pytest.raises(RuntimeError, match="launch failed"):
         C.mailbox(big, offs, 256)
     monkeypatch.undo()
     beb(f)
-    cluster_beb(f)
     C.mailbox(big, offs, 256)
     torch.cuda.synchronize()
 

@@ -8,6 +8,7 @@ that version on the card (tests/test_torch_cuda_protos.py)."""
 
 import dataclasses
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -73,7 +74,8 @@ def test_beb_matches_jax_prototype_on_walled_grids(grid):
     _compare(fj, gj, mj, ft, gt, mt, 0.01)
 
 
-@pytest.mark.parametrize("grid", ["harris2d", "pec3d", "walls3d"])
+@pytest.mark.parametrize("grid", ["harris2d", "pec3d", "walls3d",
+                                  "periodic3d"])
 def test_ghost_points_from_their_sources_match_ghost_tang_b(grid):
     """The kernel's ghost phase, written out in numpy: every tangential cB
     ghost point maps all its ghost coordinates to their source planes at
@@ -107,21 +109,46 @@ def test_ghost_points_from_their_sources_match_ghost_tang_b(grid):
                               w.view(np.int32)), name
 
 
-def test_beb_refuses_what_the_kernel_does_not_cover():
+# What the kernel does not cover, one case per reason: (grid, material) of
+# pec3d -> the uncovered pair, and refusal's text.
+REFUSED = {
+    "absorbing": (lambda g, m: (g.with_bc(2, fbc=GT.ABSORB_FIELDS), m),
+                  "face 2 is absorbing (Higdon ghosts)"),
+    "remote": (lambda g, m: (g.with_bc(1, fbc=GT.REMOTE), m),
+               "face 1 is remote"),
+    "unknown_bc": (lambda g, m: (g.with_bc(4, fbc=5), m),
+                   "face 4 has an unknown field bc 5"),
+    "sharded": (lambda g, m: (dataclasses.replace(g, topology=(2, 1, 1)), m),
+                "decomposed grids and join tables need the remote faces"),
+    "join_table": (lambda g, m: (dataclasses.replace(
+        g, face_partners=((0,), (-1,), (-1,), (0,), (-1,), (-1,))), m),
+        "decomposed grids and join tables need the remote faces"),
+    # 2050 x 1026 x 1026 ghosted voxels > 2^31; nothing is allocated
+    "voxels_32bit": (lambda g, m: (dataclasses.replace(
+        g, nx=2048, ny=1024, nz=1024), m),
+        "the kernel indexes voxels in 32 bits"),
+    "mesh": (lambda g, m: (g, dataclasses.replace(
+        m, rmux=torch.ones(g.shape))),
+        "material coefficient rmux is a mesh array"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_beb_refuses_what_the_kernel_does_not_cover(case):
     _, (g, _, m) = field_pair("pec3d")
-    assert FF.supports_beb(g, m)
-    absorbing = g.with_bc(2, fbc=GT.ABSORB_FIELDS)
-    remote = g.with_bc(1, fbc=GT.REMOTE)
-    sharded = dataclasses.replace(g, topology=(2, 1, 1))
-    mesh = dataclasses.replace(m, rmux=torch.ones(g.shape))
-    for gg, mm in ((absorbing, m), (remote, m), (sharded, m), (g, mesh)):
-        assert not FF.supports_beb(gg, mm)
-        with pytest.raises(NotImplementedError):
-            FF.make_beb(gg, mm, 0.0)
+    assert FF.refusal(g, m) is None and FF.supports_beb(g, m)
+    cut, why = REFUSED[case]
+    gg, mm = cut(g, m)
+    assert FF.refusal(gg, mm) == why
+    assert not FF.supports_beb(gg, mm)
+    with pytest.raises(NotImplementedError, match=re.escape(why)):
+        FF.make_beb(gg, mm, 0.0)
 
 
-def test_beb_runs_in_place_on_the_cpu():
-    _, (g, f, m) = field_pair("walls3d", seed=5)
+@pytest.mark.parametrize("grid", ["harris2d", "pec3d", "walls3d",
+                                  "periodic3d"])
+def test_beb_runs_in_place_on_the_cpu(grid):
+    _, (g, f, m) = field_pair(grid, seed=5)
     ref = FF.beb_ref(ST.FieldState(**{n: getattr(f, n).clone()
                                       for n in ST.FIELD_NAMES}), g, m, 0.02)
     ex = f.ex

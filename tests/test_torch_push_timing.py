@@ -1,10 +1,9 @@
-"""The push timers' CPU-side logic (``utils/push_timing.py``): the order of
-the turns, the bit-level lane-state comparison, and the ``Pusher`` that
-every timed push goes through, which must give each push the same input
-lanes and a zeroed accumulator.  The timers themselves need a CUDA card."""
+"""The push timers' CPU-side logic (``utils/push_timing.py``): the
+``Pusher`` that every timed push goes through, which must give each push the
+same input lanes and a zeroed accumulator.  The timers themselves need a
+CUDA card."""
 
 import numpy as np
-import pytest
 import torch
 
 import vpic_tpu_torch.grid as G
@@ -13,27 +12,10 @@ from vpic_tpu_torch.state import SpeciesState
 from vpic_tpu_torch.utils import push_timing as PT
 
 
-@pytest.mark.parametrize("others,turns", [
-    ([], ["H", "H"]),
-    (["P"], ["P", "H", "H", "P"]),
-    (["P", "A", "B"], ["P", "A", "B", "H", "H", "B", "A", "P"]),
-])
-def test_turn_order_is_symmetric(others, turns):
-    assert PT.turn_order("H", others) == turns
-
-
-def test_differ_counts_bits_and_skips_the_accumulator():
-    x = torch.tensor([0.0, 1.0, 2.0, 3.0])
-    y = torch.tensor([-0.0, 1.0, 2.5, 3.0])     # -0.0: another bit pattern
-    i = torch.tensor([1, 2, 3], dtype=torch.int32)
-    a = {"0.dx": x, "0.i": i, "acc": torch.zeros(4)}
-    b = {"0.dx": y, "0.i": i + torch.tensor([0, 0, 7], dtype=torch.int32),
-         "acc": torch.ones(4)}
-    assert PT.differ(a, b) == {"0.dx": [2, 0.5], "0.i": [1, 7.0]}
-    assert PT.differ(a, a) == {}
-    flags = {"emit0": torch.tensor([True, False])}
-    assert PT.differ(flags, {"emit0": torch.tensor([True, True])}) == {
-        "emit0": [1, 1.0]}
+def _same_bits(x, y):
+    if x.dtype == torch.float32:
+        return torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return torch.equal(x, y)
 
 
 def _lanes(g, n, seed):
@@ -71,8 +53,8 @@ def test_pusher_gives_every_push_the_same_inputs():
         got = p.push()[0]
         assert torch.equal(p.acc, acc)
         for a, b in zip(got, want):
-            assert PT.differ({n: getattr(a, n) for n in PT.MOVED},
-                             {n: getattr(b, n) for n in PT.MOVED}) == {}
+            for n in PT.MOVED:
+                assert _same_bits(getattr(a, n), getattr(b, n)), n
     for a, b in zip(species, before):
         for n in PT.LANES:
             assert torch.equal(getattr(a, n), getattr(b, n))

@@ -2,13 +2,11 @@
 field_beb kernel on every deck it covers, the plain trio, with the reasons,
 on the rest.  On the CPU the fused trio runs its plain version
 (ops/field_fuse.beb_ref: the same three calls in the same order), so the
-step stays bit for bit what the three plain calls give.  The step runs the
-kernel's grid instance; which grids the cluster instance takes is decided
-by bytes alone, in pure Python, so it is checked here; both instances
-against the plain trio are on the card (tests/test_torch_cuda_protos.py).  Its parity with vpic_tpu's Pallas
+step stays bit for bit what the three plain calls give.  The kernel's
+coefficient and face arguments are packed in pure Python, so they are
+checked here; the kernel against the plain trio is on the card
+(tests/test_torch_cuda_protos.py).  Its parity with vpic_tpu's Pallas
 prototype is tests/test_torch_field_fuse.py."""
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -19,6 +17,8 @@ import vpic_tpu_torch.ops.field_fuse as FF
 import vpic_tpu_torch.ops.fields as F
 from vpic_tpu_torch.models import (emission, harris, lpi, reconnection,
                                    shapes, weibel)
+
+from torch_parity import field_pair
 
 torch.set_num_threads(2)
 
@@ -104,65 +104,45 @@ def test_step_fields_bit_for_bit_the_plain_calls(deck, monkeypatch):
     assert np.isfinite(sim.energies(a).numpy()).all()
 
 
-@pytest.mark.parametrize("cells,which", [
-    ((64, 64, 1), "cluster"), ((128, 128, 1), "cluster"),
-    ((32, 32, 32), "cluster"), ((37, 23, 11), "cluster"),
-    ((16, 16, 1), "cluster"), ((5, 4, 3), "cluster"),
-    ((256, 256, 1), "grid"), ((64, 64, 64), "grid"),
-    ((48, 48, 48), "grid"), ((1024, 1, 1), "cluster")])
-def test_instance_choice_by_bytes(cells, which):
-    """Where the cluster instance takes a grid (its slabs fit), and how it
-    cuts the grid."""
-    assert FF.cluster_fits(cells) == (which == "cluster")
-    plan = FF.cluster_plan(cells)
-    N = [c + 2 for c in cells]
-    assert plan.axis == max([a for a in range(3) if N[a] > 3], default=0)
-    # every plane lies in one slab, no CTA is empty, and a CTA's six arrays
-    # hold its slab with the 16-byte alignment shift
-    np_ = N[plan.axis]
-    lo = [r * np_ // plan.ctas for r in range(plan.ctas + 1)]
-    rows = [b - a for a, b in zip(lo, lo[1:])]
-    assert min(rows) >= 1 and max(rows) == plan.rows
-    assert plan.rs >= plan.rows * plan.inner
-    assert (plan.rs - np_ * plan.inner) % 4 == 0
-    assert plan.stride % 4 == 0 and plan.stride >= 3 + plan.outer * plan.rs
-    assert plan.inner * np_ * plan.outer == N[0] * N[1] * N[2]
-    assert (plan.smem <= FF.SMEM_PER_CTA) == (which == "cluster")
-    if which == "cluster":
-        # one cluster holds the 12 arrays of the whole grid
-        assert 48 * N[0] * N[1] * N[2] <= FF.CLUSTER_CTAS * FF.SMEM_PER_CTA
+def _args_case(name):
+    """(grid, material, damp): a DECKS deck's, or field_pair's walled or
+    periodic grid with damping 0.02."""
+    if name in DECKS:
+        sim = DECKS[name]()
+        return sim.grid, sim._material_coeffs(), sim.damp
+    _, (g, _, m) = field_pair(name)
+    return g, m, 0.02
 
 
-def test_make_beb_takes_an_instance():
-    sim = DECKS["harris2d"]()
-    g, m = sim.grid, sim._material_coeffs()
-    assert FF.make_beb(g, m, sim.damp).instance == "grid"
-    assert FF.make_beb(g, m, sim.damp, "cluster").instance == "cluster"
-    with pytest.raises(ValueError):
-        FF.make_beb(g, m, sim.damp, "warp")
-    big = GT.partition_periodic_box(0, 0, 0, 1.0, 1.0, 1.0, 256, 256, 1,
-                                    dt=0.01, cvac=1.0, eps0=1.0)
-    assert FF.make_beb(big, m, 0.0).instance == "grid"
-    with pytest.raises(ValueError, match="cluster instance needs"):
-        FF.make_beb(big, m, 0.0, "cluster")
+# csrc/field_beb.cu's ghost rule per face bc: 0 wrap, 1 mirror, -1 negated
+RULE = {GT.PERIODIC: 0, GT.PEC: 1, GT.SYMMETRIC: -1, GT.PMC: -1}
 
 
-def test_kernel_args_pack_the_plain_coefficients():
+@pytest.mark.parametrize("case", ["harris2d", "harris3d", "pec3d",
+                                  "walls3d", "periodic3d"])
+def test_kernel_args_pack_the_plain_coefficients(case):
     """The kernel's 17 coefficients and 12 face ints: the plain ops'
-    float32 values (0 along the flat axis), pec flags on harris's x
-    faces, a wrap rule on its periodic ones."""
-    sim = DECKS["harris2d"]()
-    g, m, damp = sim.grid, sim._material_coeffs(), sim.damp
+    float32 values (exactly 0 along a flat axis), the ghost rule of every
+    face (wrap, mirror on pec, negated mirror on symmetric and pmc) and
+    the pec flags."""
+    g, m, damp = _args_case(case)
     coef, faces = FF.kernel_args(g, m, damp)
     coef, faces = list(coef), list(faces)
     assert len(coef) == 17 and len(faces) == 12
     f32 = lambda x: float(np.float32(x))
-    assert coef[0] == f32(0.5 * g.cvac * g.dt * g.rdx)
-    assert coef[3] == f32((1 + damp) * g.cvac * g.dt * g.rdx)
-    assert coef[2] == coef[5] == 0.0            # z is flat
+    rd = (g.rdx, g.rdy, g.rdz)
+    flat = (g.gnx == 1, g.gny == 1, g.gnz == 1)
+    assert any(flat) == (case == "harris2d")
+    for a in range(3):
+        if flat[a]:
+            assert coef[a] == coef[3 + a] == 0.0
+        else:
+            assert coef[a] == f32(0.5 * g.cvac * g.dt * rd[a])
+            assert coef[3 + a] == f32((1 + damp) * g.cvac * g.dt * rd[a])
+    assert coef[6] == f32(damp)
     assert coef[7] == f32(g.dt / g.eps0)
     assert coef[8:] == [f32(getattr(m, n)) for n in (
         "decayx", "decayy", "decayz", "drivex", "drivey", "drivez",
         "rmux", "rmuy", "rmuz")]
-    assert faces[:6] == [FF._GHOST[bc] for bc in g.field_bc]
-    assert faces[6] == faces[9] == 1 and faces[7] == faces[10] == 0
+    assert faces[:6] == [RULE[bc] for bc in g.field_bc]
+    assert faces[6:] == [int(bc == GT.PEC) for bc in g.field_bc]

@@ -52,7 +52,7 @@
 // 16-byte loads issued before the scan, and launches once for every
 // species: 0.111 ms a merge of both species (the parent's two launches of
 // one thread a lane took 0.192); storing every 16 bytes took 0.120.
-// (NVIDIA H100 80GB HBM3, 700 W; utils/step_breakdown.py; PERF.md.)
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md.)
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 without
 // --use_fast_math.  The entry point returns cudaGetLastError() after the

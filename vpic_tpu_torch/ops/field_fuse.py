@@ -9,14 +9,8 @@ the port's field ops do.  On CUDA tensors it makes one launch of
 :func:`beb_ref` (``ops/fields.advance_b``, ``advance_e``, ``advance_b``).
 It never falls back from one to the other.
 
-The kernel has two instances.  ``"grid"``, one cooperative launch over
-the whole card, is the one ``make_beb`` builds by default and the step
-runs, at every grid size: it is the faster one wherever both were
-measured (PERF.md).  ``"cluster"``, one thread-block cluster of up to
-:data:`CLUSTER_CTAS` CTAs that holds the 12 arrays in their shared memory,
-takes only the grids whose slabs (48 B a voxel, whole planes a CTA) fit
-into :data:`SMEM_PER_CTA` (:func:`cluster_fits`); it is built only on
-request, to be measured against the grid instance.
+The kernel is one cooperative launch over the whole card, at every grid
+size.
 
 The kernel covers one device with periodic, pec, symmetric and pmc field
 faces and 0-d (single material) coefficients; :func:`supports_beb` says
@@ -28,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 from typing import Callable, Optional
 
 import torch
@@ -41,17 +34,12 @@ from . import fields as F
 from .fused_push import _check
 
 KERNEL = "field_beb"
-THREADS = 256               # the grid instance's CUDA block
-CLUSTER_THREADS = 1024      # the cluster instance's CUDA block (one per SM)
-CLUSTER_CTAS = 16           # CTAs in a cluster (a non-portable size: Hopper)
-SMEM_PER_CTA = 232448       # shared memory a block can opt into (H100: 227 KB)
-INSTANCES = ("cluster", "grid")
+THREADS = 256               # the kernel's CUDA block
 FIELDS = ("ex", "ey", "ez", "cbx", "cby", "cbz", "tcax", "tcay", "tcaz",
           "jfx", "jfy", "jfz")
 OUTPUTS = FIELDS[:9]
 
-# Kernel launches made by beb (either instance) since the count was last
-# reset.
+# Kernel launches made by beb since the count was last reset.
 launches = 0
 
 # ghost_tang_b's rule per face bc: 0 wrap, 1 mirror plane, -1 its negation
@@ -92,62 +80,12 @@ def supports_beb(g: Grid, m: MaterialCoeffs) -> bool:
     return refusal(g, m) is None
 
 
-@dataclasses.dataclass(frozen=True)
-class ClusterPlan:
-    """How the cluster instance cuts the ghosted grid (N = n + 2 points an
-    axis) into slabs of whole planes along ``axis``, the slowest axis with
-    n > 1 (z in 3-D, y in 2-D): CTA r of ``ctas`` owns planes
-    [r NP / ctas, (r + 1) NP / ctas), at most ``rows``.  In its shared
-    memory each of the 12 arrays (FIELDS) holds ``stride`` floats: the
-    slab's ``outer`` runs (one per point of the axes slower than
-    ``axis``), ``rs`` floats apart, each run at the address mod 16 bytes
-    its data has in global memory (csrc/field_beb.cu, Slab)."""
-    axis: int
-    ctas: int
-    rows: int
-    inner: int
-    outer: int
-    rs: int
-    stride: int
-
-    @property
-    def smem(self) -> int:
-        """Shared bytes a CTA needs: the 12 arrays of ``stride`` floats."""
-        return len(FIELDS) * 4 * self.stride
-
-    def ints(self):
-        return [self.axis, self.ctas, self.rs, self.stride]
-
-
-def cluster_plan(n) -> ClusterPlan:
-    """The cluster instance's slabs for a grid of n = (nx, ny, nz) cells."""
-    N = [int(k) + 2 for k in n]
-    axis = max([a for a in range(3) if N[a] > 3], default=0)
-    np_ = N[axis]
-    inner = math.prod(N[:axis])
-    outer = math.prod(N[axis + 1:])
-    ctas = min(CLUSTER_CTAS, np_)
-    rows = -(-np_ // ctas)
-    rs = rows * inner + (np_ * inner - rows * inner) % 4
-    stride = -(-(3 + outer * rs) // 4) * 4
-    return ClusterPlan(axis, ctas, rows, inner, outer, rs, stride)
-
-
-def cluster_fits(n) -> bool:
-    """True where the cluster instance takes a grid of n = (nx, ny, nz)
-    cells: every CTA's slabs of the 12 arrays fit into SMEM_PER_CTA."""
-    return cluster_plan(n).smem <= SMEM_PER_CTA
-
-
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     if lib.field_beb_grid.argtypes is None:
         head = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p] * 2
-        lib.field_beb_cluster.argtypes = head + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         lib.field_beb_grid.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
-        lib.field_beb_cluster.restype = ctypes.c_int
         lib.field_beb_grid.restype = ctypes.c_int
         lib.field_beb_error_string.argtypes = [ctypes.c_int]
         lib.field_beb_error_string.restype = ctypes.c_char_p
@@ -158,7 +96,7 @@ def kernel_args(g: Grid, m: MaterialCoeffs, damp: float):
     """The kernel's coefficient and face arguments as ctypes arrays: coef
     (17 floats: pb[3], pe[3], damp, dt/eps0, decay[3], drive[3], rmu[3])
     and faces (12 ints: the ghost rule and the pec flag of each face), as
-    csrc/field_beb.cu's entries take them."""
+    csrc/field_beb.cu's entry takes them."""
     d = (g.rdx, g.rdy, g.rdz)
     flat = (g.gnx == 1, g.gny == 1, g.gnz == 1)
     # the same Python expressions as ops/fields, so the same float32 values
@@ -176,27 +114,16 @@ def kernel_args(g: Grid, m: MaterialCoeffs, damp: float):
             (ctypes.c_int * len(faces))(*faces))
 
 
-def make_beb(g: Grid, m: MaterialCoeffs, damp: float,
-             which: str = "grid") -> Callable[[FieldState], FieldState]:
-    """The trio for this grid, material and damping as ``beb(f)``; its
-    ``instance`` attribute names the kernel instance it launches on CUDA
-    tensors: ``which``, "grid" (the step's) or "cluster" (ValueError where
-    its slabs do not fit, :func:`cluster_fits`).  The 0-d coefficients are
-    read to host floats here, once, so no call syncs with the device.
-    Raises NotImplementedError where supports_beb is False."""
+def make_beb(g: Grid, m: MaterialCoeffs,
+             damp: float) -> Callable[[FieldState], FieldState]:
+    """The trio for this grid, material and damping as ``beb(f)``.  The 0-d
+    coefficients are read to host floats here, once, so no call syncs with
+    the device.  Raises NotImplementedError where supports_beb is False."""
     why = refusal(g, m)
     if why:
         raise NotImplementedError(f"field_beb: {why}")
     cells = (g.nx, g.ny, g.nz)
-    plan = cluster_plan(cells)
-    if which not in INSTANCES:
-        raise ValueError(f"field_beb: unknown instance {which!r}")
-    if which == "cluster" and plan.smem > SMEM_PER_CTA:
-        raise ValueError(f"field_beb: the cluster instance needs "
-                         f"{plan.smem} shared bytes a CTA at {cells}, more "
-                         f"than {SMEM_PER_CTA}")
     c_coef, c_faces = kernel_args(g, m, damp)
-    c_plan = (ctypes.c_int * 4)(*plan.ints())
 
     def beb(f: FieldState) -> FieldState:
         global launches
@@ -211,18 +138,12 @@ def make_beb(g: Grid, m: MaterialCoeffs, damp: float,
         lib = _lib()
         ptrs = [a.data_ptr() for a in arrays]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if which == "cluster":
-            rc = lib.field_beb_cluster(*ptrs, *cells, c_coef, c_faces,
-                                       c_plan, CLUSTER_THREADS, stream)
-        else:
-            rc = lib.field_beb_grid(*ptrs, *cells, c_coef, c_faces, THREADS,
-                                    stream)
+        rc = lib.field_beb_grid(*ptrs, *cells, c_coef, c_faces, THREADS,
+                                stream)
         if rc != 0:
             msg = lib.field_beb_error_string(rc).decode()
-            raise RuntimeError(f"field_beb {which} launch failed: {msg} "
-                               f"({rc})")
+            raise RuntimeError(f"field_beb launch failed: {msg} ({rc})")
         launches += 1
         return f
 
-    beb.instance = which
     return beb
