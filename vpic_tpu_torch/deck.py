@@ -1170,8 +1170,8 @@ class Simulation:
                                  diag)
 
         def sort_res(species):
-            out = [FP3.brick_sort_p_home(sp, g, extent=sort_extents[k],
-                                         slack=res_slack)
+            out = [FP3.brick_sort_p_res(sp, g, extent=sort_extents[k],
+                                        slack=res_slack)
                    for k, sp in enumerate(species)]
             return [o[0] for o in out], [o[1] for o in out]
 

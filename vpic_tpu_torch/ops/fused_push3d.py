@@ -17,9 +17,13 @@ copies each block's brick-leavers into the block's outbox columns, which
 The brick layout is what the code computes, and it is ported faithfully:
 8x8x8 bricks, the quantized brick sort (every 1024-lane block holds lanes of
 one brick) with its exact home map, the slack blocks and the tight-packing
-fallback.  What the JAX package computes only to fit the TPU has no
-counterpart here, because the port keeps canonical voxels, the (nv, 18)
-``load_interpolator`` table and the (nv, 12) accumulator:
+fallback.  One order differs: the residency path's relayout and rebucket
+(``brick_sort_p_res``) deal each brick's lanes round-robin over its blocks,
+where the JAX package fills them in order, so that the blocks on a brick's
+faces do not hold its leavers alone; the home map is the same.  What the
+JAX package computes only to fit the TPU has no counterpart here, because
+the port keeps canonical voxels, the (nv, 18) ``load_interpolator`` table
+and the (nv, 12) accumulator:
 
 * the chart tables and their folds: ``to_chart_T`` (:136),
   ``fold_chart_acc`` (:167), ``_extend_axis``, ``chart_width``,
@@ -165,13 +169,18 @@ def brick_of(i: torch.Tensor, g: Grid) -> torch.Tensor:
 
 
 def _sort_src_q(b: torch.Tensor, nb: int, N: int, quantum: int,
-                nhome: int = 0, slack: int = 0):
+                nhome: int = 0, slack: int = 0, interleave: bool = False):
     """Per-output-slot source index of the quantized brick sort (-1 for gap
     and dead slots) and the (max(ceil(N/quantum), nhome),) block -> home
     brick map the layout implies; bit-equal to the JAX package's.  Each
     brick's slots are rounded up to whole blocks plus ``slack`` empty ones;
     when that overflows N the layout falls back to tight packing, where a
-    block's home is the brick of its first slot."""
+    block's home is the brick of its first slot.  ``interleave`` deals a
+    brick's sorted lanes round-robin over its nfull = ceil(lanes/quantum)
+    blocks in the quantized layout (sorted lane r to block r mod nfull,
+    column r div nfull), so each block holds a near-equal share of every
+    voxel of the brick; the home map and the tight packing stay as they
+    are, and a brick of one block is laid out as without it."""
     dev = b.device
     i64 = lambda t: t.to(torch.int64)
     b_sorted, sorted_src = packed_src_sort(b, N, nb + 1)
@@ -180,7 +189,8 @@ def _sort_src_q(b: torch.Tensor, nb: int, N: int, quantum: int,
     seg_start = torch.searchsorted(
         b_sorted, torch.arange(nb + 1, dtype=torch.int64, device=dev))
     totb = seg_start[1:] - seg_start[:-1]                     # (nb,)
-    totq = (_fdiv(totb + quantum - 1, quantum) + slack) * quantum
+    nfull = _fdiv(totb + quantum - 1, quantum)                # lane blocks
+    totq = (nfull + slack) * quantum
     qend = torch.cumsum(totq, 0)
     qoff = qend - totq
     ok = qend[-1] <= N
@@ -188,12 +198,23 @@ def _sort_src_q(b: torch.Tensor, nb: int, N: int, quantum: int,
     nblk = max((N + quantum - 1) // quantum, nhome)
     blk0 = torch.arange(nblk, dtype=torch.int64, device=dev) * quantum
     k = torch.clamp(torch.searchsorted(qend, blk0, right=True), 0, nb - 1)
-    start_j = blk0 + seg_start[k] - qoff[k]                   # first source
-    rem = torch.clamp(totb[k] - (blk0 - qoff[k]), 0, quantum)  # live in blk
     lane = torch.arange(quantum, dtype=torch.int64, device=dev)[None, :]
-    idx = torch.clamp(start_j[:, None] + lane, 0, max(N - 1, 0))
-    q_src = torch.where(lane < rem[:, None], sorted_src[idx],
-                        -1).reshape(-1)[:N]
+    if interleave:
+        # in place: one (nblk, quantum) index grid, as the other branch
+        nf = nfull[k]
+        m = _fdiv(blk0 - qoff[k], quantum)                    # block in brick
+        idx = lane * torch.clamp(nf, min=1)[:, None]
+        idx += m[:, None]                                     # rank in brick
+        live = idx < totb[k][:, None]
+        live &= (m < nf)[:, None]
+        idx += seg_start[k][:, None]
+        idx.clamp_(0, max(N - 1, 0))
+    else:
+        start_j = blk0 + seg_start[k] - qoff[k]               # first source
+        rem = torch.clamp(totb[k] - (blk0 - qoff[k]), 0, quantum)
+        live = lane < rem[:, None]                            # live in blk
+        idx = torch.clamp(start_j[:, None] + lane, 0, max(N - 1, 0))
+    q_src = torch.where(live, sorted_src[idx], -1).reshape(-1)[:N]
 
     n_live = seg_start[nb]
     t_src = torch.where(torch.arange(N, device=dev) < n_live, sorted_src, -1)
@@ -213,6 +234,24 @@ def brick_sort_p_home(sp: SpeciesState, g: Grid, quantum: int = BLOCK,
     bounds the live slots (see bucket_sort_p): only the first
     round_up(extent + nbricks*(1+slack)*quantum, quantum) slots are sorted.
     Returns new tensors."""
+    return _brick_sort(sp, g, quantum, extent, slack, False)
+
+
+def brick_sort_p_res(sp: SpeciesState, g: Grid, extent: int = 0,
+                     slack: int = 0):
+    """The residency path's brick sort (the relayout and the rebucket):
+    brick_sort_p_home's block -> home map, live lanes per brick and slack
+    blocks, with each brick's lanes dealt round-robin over its blocks
+    (``_sort_src_q``'s ``interleave``).  A block then holds a near-equal
+    share of every voxel of its brick, not a run of neighbouring voxels,
+    so the blocks on a brick's faces do not hold its leavers alone and
+    overflow their outboxes.  Where every brick fits one block, or the
+    layout falls back to tight packing, it is brick_sort_p_home."""
+    return _brick_sort(sp, g, BLOCK, extent, slack, True)
+
+
+def _brick_sort(sp: SpeciesState, g: Grid, quantum: int, extent: int,
+                slack: int, interleave: bool):
     N = sp.capacity
     nb = nbricks(g)
     E = (min(_round_up(extent + nb * (1 + slack) * quantum, quantum), N)
@@ -220,7 +259,8 @@ def brick_sort_p_home(sp: SpeciesState, g: Grid, quantum: int = BLOCK,
     head = sp.replace(**{n: getattr(sp, n)[:E] for n in LANE_FIELDS})
     b = torch.where(head.live, brick_of(head.i, g), nb)
     src, home = _sort_src_q(b, nb, E, quantum,
-                            nhome=(N + quantum - 1) // quantum, slack=slack)
+                            nhome=(N + quantum - 1) // quantum, slack=slack,
+                            interleave=interleave)
     moved = gather_sp_rows(torch.clamp(src, min=0), head)
     moved["live"] = moved["live"] & (src >= 0)
     moved["w"] = torch.where(moved["live"], moved["w"], 0.0)

@@ -2,7 +2,9 @@
 ``vpic_tpu/ops/residency.py``).
 
 Particles live in fixed per-brick block regions, set up by the quantized
-brick sort with ``slack`` empty blocks per brick, and migrate incrementally:
+brick sort with ``slack`` empty blocks per brick (``brick_sort_p_res``: each
+brick's lanes dealt round-robin over its blocks), and migrate
+incrementally:
 
 * the push kernel copies each block's brick-leavers into the block's outbox
   and marks them emitted (``ops/fused_push3d``, residency=True);
