@@ -6,12 +6,13 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, each of which must pass (any failure exits non-zero):
   1. device: a CUDA card is present; prints its nvidia-smi name and power
      limit;
-  2. build: the ten kernel sources (csrc/fused_push2d.cu, fused_push3d.cu,
-     move_p.cu, merge_p.cu, res_plan.cu, compact_block.cu with the
-     compaction and the block copy, mailbox.cu, field_beb.cu, graph_cond.cu,
-     ta_collide.cu) built for sm_90a, one nvcc each, started
-     together; prints ptxas' registers / spills / shared memory (ta_collide's
-     kernels must spill nothing), and the push kernels' CUDA blocks per SM;
+  2. build: the eleven kernel sources (csrc/fused_push2d.cu,
+     fused_push3d.cu, move_p.cu, merge_p.cu, res_plan.cu, compact_block.cu
+     with the compaction and the block copy, mailbox.cu, field_beb.cu,
+     graph_cond.cu, ta_collide.cu, rho_p.cu) built for sm_90a, one nvcc
+     each, started together; prints ptxas' registers / spills / shared
+     memory (ta_collide's kernels must spill nothing), and the push
+     kernels' CUDA blocks per SM;
   3. 2-D kernel: holds the 2-D push kernel against its plain PyTorch version
      on the 64^2 x 64 ppc harris state at the main path's shapes, after the
      bucket sort; prints its deposit rounds that took the global path and
@@ -261,6 +262,20 @@ Phases, each of which must pass (any failure exits non-zero):
      eager); 20 graphed reconnection steps from step 0 (every lane kept,
      drift below 3e-2, the IF rebuckets counted) and its peak memory in
      turns.
+ 30. the cleaners' charge deposit: the entry point vpic_tpu_torch.scripts.
+     rho_bench (its main()) on harris3d 32^3 x 128 ppc (the residency
+     layout with its home maps: the kernel's TILE instance), sc08 at
+     150 x 25 x 100 x 1 ppc and harris2d 64^2 x 64 ppc (no home maps: the
+     global path), each after 3 graphed steps: no launch in initialize()
+     (the plain version) and one a cleaning step for every species; in
+     each of 10 calls (one launch each) the kernel against the plain
+     moment form to 2e-6 of the charge scale (the larger of max |rhof|
+     and one species' largest node charge) and against the node form
+     summed in float64 to 1e-6 of it (the plain version's own error
+     printed beside); no lane on the global path on the residency layout,
+     every live lane deposited; the kernel and the plain version timed
+     (CUDA events, device ms), with the bound (1 byte a slot, 20 a live
+     lane, rhof twice).
 The graphed steps (every one-domain deck but those four) count their
 launches by replay (step_graph): the counts are read after
 step_graph.settle(), and the residency step's host syncs are those of its
@@ -2507,6 +2522,53 @@ def graph_phase(torch, counters, card, results):
     print(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
 
 
+def rho_phase(card):
+    """Phase 30: the entry point scripts.rho_bench at the benchmark decks'
+    sizes; returns rho_p's entry of the kernels' line."""
+    from vpic_tpu_torch.ops import rho_p as RHO
+    from vpic_tpu_torch.scripts import rho_bench as RB
+    t0 = time.perf_counter()
+    out = RB.main()
+    for name in RB.DECKS:
+        r = out[name]
+        run = r["run"]
+        print(f"rho_p {name} ({run['path']}, tile {r['tile']}): "
+              f"{run['launches']} launches in initialize() and "
+              f"{RB.STEPS} steps with {run['cleaning_steps']} cleaning; "
+              f"worst of {RB.ERR_CALLS} calls: max abs err "
+              f"{r['max_abs_err']:.3e} of the charge scale "
+              f"({r['err_of_max_rhof']:.3e} of max |rhof|), against the "
+              f"float64 sum {r['kernel_err_exact']:.3e} (plain "
+              f"{r['plain_err_exact']:.3e}); lanes on the global path "
+              f"{r['global_lanes']} of {r['deposited_lanes']}; timing "
+              f"({card}): device {r['device_ms']:.5f} ms "
+              f"({r['bound_pct']:.1f} % of the bound {r['bound_ms']:.5f}), "
+              f"CUDA events {r['ms']:.5f} ms; plain device "
+              f"{r['plain_device_ms']:.5f}, CUDA events "
+              f"{r['plain_ms']:.5f} ms")
+        if run["launches"] != run["cleaning_steps"]:
+            fail(f"rho_p {name}: {run['launches']} launches for "
+                 f"{run['cleaning_steps']} cleaning steps")
+        if (r["launches"] != 1 or not r["max_abs_err"] <= 2e-6
+                or not r["kernel_err_exact"] <= 1e-6):
+            fail(f"rho_p {name}: {r}")
+        if r["deposited_lanes"] != r["lanes"] or not r["device_ms"] > 0:
+            fail(f"rho_p {name}: {r}")
+        if r["tile"] and r["global_lanes"] != 0:
+            fail(f"rho_p {name}: {r['global_lanes']} lanes outside their "
+                 "block's brick on the residency layout")
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s")
+    r = out["harris3d"]
+    return dict(
+        name=RHO.KERNEL, route="cuda",
+        source="vpic_tpu_torch/csrc/rho_p.cu",
+        replaces="none (vpic_tpu/ops/push.py accumulate_rho_p, plain jnp)",
+        launches=sum(out[n]["run"]["launches"] for n in RB.DECKS),
+        max_abs_err=max(out[n]["max_abs_err"] for n in RB.DECKS),
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by="bytes", library_ms=None)
+
+
 def graph_run(torch, sim, name, n, counters, card, results):
     """Phase 29's harris runs: n steps in one make_multi_step once every
     cadence of them is captured, then eager and graphed in turns."""
@@ -2689,6 +2751,7 @@ def main():
     from vpic_tpu_torch.ops import interp as I
     from vpic_tpu_torch.ops import move_p as MP
     from vpic_tpu_torch.ops import residency as RES
+    from vpic_tpu_torch.ops import rho_p as RHO
     from vpic_tpu_torch.ops import ta_collide as TA
     from vpic_tpu_torch import step_graph as SG
     from vpic_tpu_torch.scripts import card as card_and_power
@@ -2709,10 +2772,10 @@ def main():
                 C.COPY_KERNEL: (C, "copy_launches"),
                 C.MAILBOX_KERNEL: (C, "mailbox_launches"),
                 FF.KERNEL: (FF, "launches"), SG.KERNEL: (SG, "launches"),
-                TA.KERNEL: (TA, "launches")}
+                TA.KERNEL: (TA, "launches"), RHO.KERNEL: (RHO, "launches")}
     sources = [FP.KERNEL, FP3.KERNEL, MP.KERNEL, RES.KERNEL,
                RES.PLAN_KERNEL, C.KERNEL, C.MAILBOX_KERNEL, FF.KERNEL,
-               SG.KERNEL, TA.KERNEL]
+               SG.KERNEL, TA.KERNEL, RHO.KERNEL]
 
     # --- phase 2: build every kernel, in parallel ---
     t0 = time.perf_counter()
@@ -3105,6 +3168,9 @@ def main():
 
     # --- phase 29: the graphed step ---
     graph_phase(torch, counters, card, results)
+
+    # --- phase 30: the cleaners' charge deposit ---
+    results[RHO.KERNEL] = rho_phase(card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -69,6 +69,7 @@ from .ops import interp as I
 from .ops import move_p as MP
 from .ops import push as P
 from .ops import residency as RES
+from .ops import rho_p as RHO
 from .parallel.mesh import mesh_of
 from .utils import profile as PF
 from .state import (FIELD_NAMES, SPECIES_NAMES, FieldState, MaterialCoeffs,
@@ -1082,11 +1083,13 @@ class Simulation:
                 rhob.copy_(out)
             return list(species), acc
 
-        def clean_e(f, species):
+        def clean_e(f, species, diag):
             F.clear_rhof(f)
-            rhof = f.rhof.reshape(-1)
-            for sp, spp in zip(species, sp_params):
-                P.accumulate_rho_p(rhof, sp, g, spp.q)
+            # the 3-D path's home maps let the deposit use brick tiles
+            homes = ([diag[f"_chart_home{k}"] for k in range(len(species))]
+                     if path == "push3d" else None)
+            RHO.accumulate_rho_multi(f.rhof.reshape(-1), species,
+                                     [spp.q for spp in sp_params], g, homes)
             F.synchronize_rho(f, g)
             for _ in range(self.num_div_e_round):
                 F.compute_div_e_err(f, g, m)
@@ -1304,7 +1307,7 @@ class Simulation:
             if cad.clean_e or cad.clean_b or cad.sync:
                 mark("clean_div")
             if cad.clean_e:
-                clean_e(f, species)
+                clean_e(f, species, diag)
             if cad.clean_b:
                 clean_b(f)
             if cad.sync:

@@ -189,6 +189,26 @@ def c_array(ctype, values):
     return (ctype * len(values))(*values)
 
 
+_resident = {}              # (entry point, instance, card) -> CUDA blocks
+
+
+def resident_blocks(blocks_per_sm, instance: int, dev: torch.device) -> int:
+    """CUDA blocks of one instance of a hand kernel that the card ``dev``
+    holds at once: ``blocks_per_sm(instance)``, the kernel library's
+    occupancy entry point, times the card's SMs."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (blocks_per_sm.__name__, instance, idx)
+    if key not in _resident:
+        with torch.cuda.device(idx):
+            per_sm = blocks_per_sm(instance)
+        if per_sm < 1:
+            raise RuntimeError(f"{blocks_per_sm.__name__}: no block of the "
+                               "kernel fits on an SM")
+        _resident[key] = per_sm * torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _resident[key]
+
+
 def c_species_table(species: Sequence[SpeciesState], qms, g: Grid,
                     homes=None, emits=None, pends=None, disps=None):
     """The entry points' per-species host arrays for one launch: the 13

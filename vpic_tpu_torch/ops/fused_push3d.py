@@ -57,8 +57,8 @@ from .fused_push import (GRID_ARGTYPES, TABLE_ARGTYPES, WALL_ARGTYPES,
                          _check, _round_up, c_array, c_species_table,
                          check_walls, deposit_counter, launch_plan,
                          packed_src_sort, push_constants, push_species_ref,
-                         recount, species_groups, wall_constants,
-                         wall_outputs)
+                         recount, resident_blocks, species_groups,
+                         wall_constants, wall_outputs)
 from .push import CUSTOM_BASE, Walls, check_particle_bcs, gather_sp_rows
 
 B3 = 8                      # 3-D brick side (cells)
@@ -368,7 +368,6 @@ _ARGTYPES = (TABLE_ARGTYPES + [ctypes.POINTER(ctypes.c_int)]
              + [ctypes.c_void_p] * 4 + GRID_ARGTYPES + [ctypes.c_int]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p]
              + [ctypes.c_int] + WALL_ARGTYPES + [ctypes.c_void_p])
-_slots = {}                 # device index -> resident CUDA blocks
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -382,21 +381,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.fused_push3d_error_string.argtypes = [ctypes.c_int]
         lib.fused_push3d_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def resident_blocks(dev: torch.device, walls: bool = False) -> int:
-    """CUDA blocks of the kernel (its WALLS instance if ``walls``) the card
-    holds at once."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if (idx, walls) not in _slots:
-        with torch.cuda.device(idx):
-            per_sm = _kernel_lib().fused_push3d_blocks_per_sm(int(walls))
-        if per_sm < 1:
-            raise RuntimeError("fused_push3d: no block of the kernel fits "
-                               "on an SM")
-        _slots[idx, walls] = per_sm * torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _slots[idx, walls]
 
 
 def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
@@ -475,7 +459,8 @@ def fused_push3d_multi(species: Sequence[SpeciesState], fcoef: torch.Tensor,
     col0 = [sum(nblocks[:k]) * out_cap for k in range(len(species))]
     res = ([obx.f.data_ptr(), obx.vox.data_ptr(), obx.valid.data_ptr(), M,
             ores.data_ptr()] if residency else [None, None, None, M, None])
-    slots = resident_blocks(dev, walls is not None)
+    slots = resident_blocks(_kernel_lib().fused_push3d_blocks_per_sm,
+                            int(walls is not None), dev)
     pends, disps = wall_outputs(species, walls)
     for grp in species_groups(species):
         sps = [species[k] for k in grp]

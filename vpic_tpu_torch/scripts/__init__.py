@@ -5,12 +5,14 @@ package's ``scripts/`` micro-benchmarks):
     python -m vpic_tpu_torch.scripts.residency_grid_bench [--cpu]
     python -m vpic_tpu_torch.scripts.field_fuse_proto [--cpu] [--nx N]
         [--ny N] [--nz N]
+    python -m vpic_tpu_torch.scripts.rho_bench
 
-Each builds its JAX counterpart's inputs, holds the CUDA kernel against an
-exact reference and against its plain PyTorch version, times kernel, plain
-version and library call with CUDA events, and prints one JSON line;
-``main(argv)`` returns it as a dict.  ``--cpu`` runs the plain versions
-only; without it a machine with no CUDA card raises.
+Each builds its JAX counterpart's inputs (rho_bench: the benchmark decks'
+states), holds the CUDA kernel against an exact reference and against its
+plain PyTorch version, times kernel, plain version and library call with
+CUDA events, and prints one JSON line; ``main(argv)`` (rho_bench:
+``main()``) returns it as a dict.  ``--cpu`` runs the plain versions only;
+without it (and always for rho_bench) a machine with no CUDA card raises.
 """
 
 from __future__ import annotations

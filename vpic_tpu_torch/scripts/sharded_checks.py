@@ -41,13 +41,15 @@ from ..ops import fused_push3d as FP3
 from ..ops import interp as I
 from ..ops import move_p as MP
 from ..ops import push as P
+from ..ops import rho_p as RHO
 from ..parallel import mesh as M
 from . import device_averages
 
 DECKS = dict(harris=(harris, "HarrisParams"), sc08=(sc08, "SC08Params"),
              reconnection=(reconnection, "ReconnectionParams"),
              emission=(emission, "EmissionParams"))
-COUNTERS = {FP.KERNEL: FP, FP3.KERNEL: FP3, MP.KERNEL: MP, FF.KERNEL: FF}
+COUNTERS = {FP.KERNEL: FP, FP3.KERNEL: FP3, MP.KERNEL: MP, FF.KERNEL: FF,
+            RHO.KERNEL: RHO}
 LANE_ATOL = 3e-5
 SUM_RTOL = 1e-5
 

@@ -69,6 +69,7 @@ from .ops import fused_push as FP
 from .ops import fused_push3d as FP3
 from .ops import move_p as MP
 from .ops import residency as RES
+from .ops import rho_p as RHO
 from .ops import ta_collide as TA
 from .state import FIELD_NAMES, SPECIES_NAMES, SimState
 from .utils import profile as P
@@ -85,9 +86,10 @@ launches = 0
 COUNTERS = ((FP, "launches"), (FP3, "launches"), (RES, "launches"),
             (RES, "plan_launches"), (FF, "launches"), (MP, "launches"), (C, "launches"),
             (C, "copy_launches"), (C, "mailbox_launches"), (TA, "launches"),
-            (sys.modules[__name__], "launches"))
-# the push kernels' device deposit counts, written by the captured launches
-DEPOSITS = (FP, FP3)
+            (RHO, "launches"), (sys.modules[__name__], "launches"))
+# the push and charge kernels' device deposit counts, written by the
+# captured launches
+DEPOSITS = (FP, FP3, RHO)
 BRANCHES = ("rebucket", "merge")
 HOOKS = ("user_field_injection", "user_current_injection",
          "user_particle_injection", "user_particle_collisions")
